@@ -1,0 +1,15 @@
+"""Toy models and integration (port of :mod:`tpu_assim.models`)."""
+
+from tpu_assim_torch.models.integration import (
+    BaseIntegrator,
+    RK4Integrator,
+    integrate_trajectory,
+)
+from tpu_assim_torch.models.lorenz96 import Lorenz96
+
+__all__ = [
+    "BaseIntegrator",
+    "Lorenz96",
+    "RK4Integrator",
+    "integrate_trajectory",
+]
