@@ -1,17 +1,21 @@
 """
 Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
-Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis) at the reference
-benchmark shape, checks it against the f64 eigh oracle, and times the
-kernels.
+Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis) and the localized
+IEnKS smoother (Jacobi SVD + fused RK4) at the reference benchmark shapes,
+checks them against f64 oracles, and times the kernels.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
-  1 device and kernel build     5 the cycle, 10 cycles through both kernels
-  2 K2 (RK4) against plain      6 large analysis (ens 100, 2^20 columns)
-  3 K1 (window) against plain   7 times (CUDA events around 10 chained
-  4 fused1d against f64 eigh       calls, median of 20 such samples)
+  1 device and kernel build     7 times (CUDA events around 10 chained
+  2 K2 (RK4) against plain         calls, median of 20 such samples)
+  3 K1 (window) against plain   8 K3 (Jacobi SVD) against plain
+  4 fused1d against f64 eigh    9 eigh LETKF with max_obs through K3
+  5 the cycle, 10 cycles        10 the localized IEnKS (bench config 9)
+     through both kernels          against its f64 step
+  6 large analysis (ens 100,    11 times of K3 and of the IEnKS step, with
+     2^20 columns)                 K3 and with LAPACK
 Then one JSON line with each kernel's launches, error and times, the card's
 name and power limit, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -30,20 +34,30 @@ import tpu_assim_torch
 from tpu_assim_torch import _build
 from tpu_assim_torch.analysis import (
     _normalized_obs_space,
+    _with_time,
     make_cycle_step,
     make_letkf_analysis,
+    make_lienks_step,
 )
 from tpu_assim_torch.convert import coord1_distance
 from tpu_assim_torch.models import Lorenz96, RK4Integrator
 from tpu_assim_torch.models import cuda_forecast as k2
+from tpu_assim_torch.ops import ienks
 from tpu_assim_torch.ops.cuda import letkf as k1
-from tpu_assim_torch.ops.localization import GaspariCohn
+from tpu_assim_torch.ops.cuda import svd as k3
+from tpu_assim_torch.ops.linalg import rev_svd, set_jacobi_dispatch
+from tpu_assim_torch.ops.localization import (
+    GaspariCohn,
+    neighborhood_select_window,
+)
 
 SEED = 42
 TOL = 1e-5          # f32 budget, relative to max|reference|
 RADIUS, INF, DEGREE = 20.0, 1.1, 12
 NB = 12             # window of the headline cell: exact, as it is >= the
                     # workload's in-support maximum of 8
+FACTOR_TOL = 1e-4   # K3: reconstruction (relative to max|A|) and
+                    # orthogonality max|Q^T Q - I|
 
 
 def log(phase, msg):
@@ -132,6 +146,73 @@ def run_window(args, nb, taper="gc2", strict=True, plain=False):
     return out if multi else out[0]
 
 
+def svd_vs_plain(a, label):
+    """K3 against its plain version on one batch: exactly one counted
+    launch, identical NaN entries, s within TOL of max|s_plain|; on the
+    matrices without NaN, reconstruction and orthogonality of U and V
+    within FACTOR_TOL. Returns (max abs error of s, kernel factors, plain
+    factors)."""
+    before = k3.LAUNCHES["svd_jacobi"]
+    out = k3.svd_jacobi(a)
+    torch.cuda.synchronize()
+    check(k3.LAUNCHES["svd_jacobi"] == before + 1,
+          f"{label}: K3 launches {k3.LAUNCHES['svd_jacobi'] - before}")
+    ref = k3.svd_jacobi_plain(a)
+    for x, y, name in zip(out, ref, "usv"):
+        check(torch.equal(torch.isnan(x), torch.isnan(y)),
+              f"{label}: NaN entries of {name} differ")
+    err_s, _ = compare(out[1], ref[1], f"{label}: s")
+    u, s, v = (x[torch.isfinite(out[1]).all(-1)] for x in out)
+    a_ok = a[torch.isfinite(out[1]).all(-1)]
+    rec = float((rev_svd(u, s, v) - a_ok).abs().max() / a_ok.abs().max())
+    eye = torch.eye(a.shape[-1], device=a.device)
+    orth = max(float((q.mT @ q - eye).abs().max()) for q in (u, v))
+    check(rec <= FACTOR_TOL and orth <= FACTOR_TOL,
+          f"{label}: reconstruction {rec!r}, orthogonality {orth!r}")
+    return err_s, out, ref
+
+
+def ienks_compositions(u, s, v, k):
+    """The sign-invariant compositions the IEnKS steps take of an SVD
+    (ops/ienks.py): W'^{-T}, the precision, the covariance and the
+    square-root weights."""
+    return (rev_svd(u, 1.0 / s, v), rev_svd(u, 1.0 / (s * s), u),
+            rev_svd(u, torch.sqrt((k - 1) / s), v))
+
+
+def svd_inputs(step, args):
+    """The batches one call of ``step`` hands to the IEnKS steps' SVD, in
+    order (two per outer iteration)."""
+    seen = []
+    svd = ienks.svd
+
+    def spy(t, *rest, **kw):
+        seen.append(t.clone())
+        return svd(t, *rest, **kw)
+
+    ienks.svd = spy
+    try:
+        step(*args)
+    finally:
+        ienks.svd = svd
+    return seen
+
+
+def sigma_span_batch(rng, b, k, span):
+    """``b`` random K x K matrices with singular values log-spaced over
+    ``span``."""
+    q1 = np.linalg.qr(rng.normal(size=(b, k, k)))[0]
+    q2 = np.linalg.qr(rng.normal(size=(b, k, k)))[0]
+    return np.einsum("bik,k,bjk->bij", q1, np.logspace(0, -np.log10(span), k),
+                     q2).astype(np.float32)
+
+
+def event_ms(fn, reps=3, warmup=1):
+    """Median of ``reps`` single calls between two CUDA events, after
+    ``warmup`` calls: for calls that take a second or more."""
+    return median_ms(fn, reps=reps, inner=1, warmup=warmup)
+
+
 def median_ms(fn, reps=20, inner=10, warmup=3):
     """Median over ``reps`` samples of the time per call of ``inner``
     back-to-back calls between two CUDA events."""
@@ -151,11 +232,13 @@ def median_ms(fn, reps=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def paired_ms(kernel_fn, plain_fn):
+def paired_ms(kernel_fn, plain_fn, plain_time=None):
     """Per-call medians, 20 samples each, in turns plain, kernel, kernel,
-    plain."""
-    halves = [median_ms(plain_fn, 10), median_ms(kernel_fn, 10),
-              median_ms(kernel_fn, 10), median_ms(plain_fn, 10)]
+    plain; ``plain_time`` (default ``median_ms`` over 10 samples) times a
+    plain half."""
+    plain_time = plain_time or (lambda fn: median_ms(fn, 10))
+    halves = [plain_time(plain_fn), median_ms(kernel_fn, 10),
+              median_ms(kernel_fn, 10), plain_time(plain_fn)]
     return (halves[1] + halves[2]) / 2.0, (halves[0] + halves[3]) / 2.0
 
 
@@ -332,11 +415,139 @@ def main():
         f"({10000 / ms_analysis * 1e3!r} grid-points/s); cycle "
         f"{ms_cycle!r} ms ({1e3 / ms_cycle!r} cycles/s) [{gpu}]")
 
+    # -- 8. K3 against its plain version ---------------------------------
+    rng = np.random.RandomState(SEED + 3)
+
+    def on_card(x):
+        return torch.as_tensor(x.astype(np.float32), device=dev)
+
+    gauss = on_card(rng.normal(size=(10000, 40, 40)))
+    lienks = make_lienks_step(loc, RK4Integrator(Lorenz96(), 0.05), 4,
+                              n_outer=2, tau=1.0, max_obs=exact_nb(worst),
+                              selection="window")
+    ienks_batches = svd_inputs(lienks, wt)
+    check(len(ienks_batches) == 4,
+          f"the IEnKS step took {len(ienks_batches)} SVDs, not 4")
+    batches = [
+        ("gaussian [10^4, 40, 40]", gauss),
+        ("sigma span 1e4 [2048, 40, 40]",
+         on_card(sigma_span_batch(rng, 2048, 40, 1e4))),
+        ("K=13 [512]", on_card(rng.normal(size=(512, 13, 13)))),
+        ("K=64 [512]", on_card(rng.normal(size=(512, 64, 64)))),
+    ] + [(f"IEnKS step {i // 2 + 1} "
+          + ("weight perturbations" if i % 2 == 0 else "updated precision"),
+          t) for i, t in enumerate(ienks_batches)]
+    notes = []
+    err_k3 = 0.0
+    for label, a in batches:
+        e, out, ref = svd_vs_plain(a, label)
+        err_k3 = max(err_k3, e)
+        if label.startswith("IEnKS"):
+            for x, y in zip(ienks_compositions(*out, 40),
+                            ienks_compositions(*ref, 40)):
+                compare(x, y, f"{label}: composition")
+        notes.append(f"{label} {e!r}")
+    nan_batch = on_card(rng.normal(size=(512, 40, 40)))
+    nan_batch[3, 5, 7] = float("nan")
+    _, out, _ = svd_vs_plain(nan_batch, "NaN batch")
+    bad = torch.isnan(out[1]).any(-1)
+    check(bool(bad[3]) and int(bad.sum()) == 1,
+          f"the NaN spread to {int(bad.sum())} matrices")
+    notes.append("NaN batch: NaN entries identical, 511 others finite")
+    # the SPD Gram batch of the eigh analysis with max_obs (phase 9)
+    idx, w_nbh = neighborhood_select_window(loc, _with_time(wt[4]),
+                                            _with_time(wt[5]), NB)
+    perts9, _ = _normalized_obs_space(wt[0][:, wt[3].long()], wt[1], wt[2])
+    z = perts9[:, idx]
+    grams = torch.einsum("kgn,gn,mgn->gkm", z, w_nbh, z).contiguous()
+    before = k3.LAUNCHES["svd_jacobi"]
+    ev, evec = k3.eigh_svd_jacobi(grams)
+    torch.cuda.synchronize()
+    check(k3.LAUNCHES["svd_jacobi"] == before + 1, "eigh launch not counted")
+    ev_p, _ = k3.eigh_from_svd(*k3.svd_jacobi_plain(grams))
+    e, _ = compare(ev, ev_p, "eigh_svd_jacobi: eigenvalues")
+    rec = float((torch.einsum("bik,bk,bjk->bij", evec, ev, evec)
+                 - grams).abs().max() / grams.abs().max())
+    orth = float((evec.mT @ evec - torch.eye(40, device=dev)).abs().max())
+    check(rec <= FACTOR_TOL and orth <= FACTOR_TOL,
+          f"eigh_svd_jacobi: reconstruction {rec!r}, orthogonality {orth!r}")
+    notes.append(f"eigh of the phase-9 Grams [10^4, 40, 40]: eigenvalues "
+                 f"{e!r}, reconstruction {rec!r}, orthogonality {orth!r}")
+    kinds["svd_jacobi"] = {"max_abs_err": err_k3}
+    log(8, "K3 svd_jacobi against plain, max abs err of s: "
+        + "; ".join(notes))
+
+    # -- 9. eigh LETKF with max_obs, f32, through K3 ---------------------
+    k3.LAUNCHES["svd_jacobi"] = 0
+    eigh_nbh = make_letkf_analysis(loc, INF, method="eigh", max_obs=NB,
+                                   selection="window")(*wt)
+    torch.cuda.synchronize()
+    check(k3.LAUNCHES["svd_jacobi"] == 1,
+          f"eigh max_obs: {k3.LAUNCHES['svd_jacobi']} K3 launches, not 1")
+    _, rel9 = compare(eigh_nbh, oracle, "eigh max_obs f32 vs f64 eigh")
+    log(9, f"eigh LETKF, max_obs={NB} window, f32 through K3 (1 launch) vs "
+        f"the f64 eigh oracle: max rel err {rel9!r} (budget {TOL})")
+
+    # -- 10. the localized IEnKS at bench config 9 -------------------------
+    def lienks_launches(step, args):
+        for table in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES):
+            for name in table:
+                table[name] = 0
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out, {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES}
+
+    expected = {"window1d": 0, "rk4_l96": 2, "svd_jacobi": 4}
+    out10, launches10 = lienks_launches(lienks, wt)
+    check(launches10 == expected, f"IEnKS step launches {launches10}")
+    check(bool(torch.isfinite(out10).all()), "IEnKS step not finite")
+    launches["svd_jacobi"] = launches10["svd_jacobi"]
+    t0 = time.perf_counter()
+    oracle10, launches64 = lienks_launches(lienks, w64)
+    s64 = time.perf_counter() - t0
+    check(launches64 == {n: 0 for n in expected},
+          f"the f64 step launched kernels: {launches64}")
+    _, rel10 = compare(out10, oracle10, "IEnKS f32 vs f64")
+    bundle = make_lienks_step(loc, RK4Integrator(Lorenz96(), 0.05), 4,
+                              n_outer=2, kind="bundle", tau=1.0,
+                              max_obs=exact_nb(worst), selection="window")
+    out_b, launches_b = lienks_launches(bundle, wt)
+    check(launches_b == expected, f"IEnKS bundle launches {launches_b}")
+    check(bool(torch.isfinite(out_b).all()), "IEnKS bundle not finite")
+    log(10, f"IEnKS transform (ens 40, grid 10000, obs 1000, GC r=20, 2 "
+        f"outer, 4xRK4, max_obs {exact_nb(worst)} window): launches "
+        f"{launches10}, finite; vs the f64 step (torch.linalg.svd, "
+        f"{s64:.1f} s) max rel err {rel10!r} (budget {TOL}); bundle finite, "
+        f"launches {launches_b}")
+
+    # -- 11. times ---------------------------------------------------------
+    kinds["svd_jacobi"]["ms"], kinds["svd_jacobi"]["plain_ms"] = paired_ms(
+        lambda: k3.svd_jacobi(gauss), lambda: k3.svd_jacobi_plain(gauss),
+        plain_time=event_ms)
+    # cuSOLVER was set up by the f64 step: one call each, no warm-up
+    ms_lapack = event_ms(lambda: torch.linalg.svd(gauss), reps=1, warmup=0)
+    ms_step = median_ms(lambda: lienks(*wt), reps=10, inner=3)
+    set_jacobi_dispatch(False)
+    try:
+        ms_step_lapack = event_ms(lambda: lienks(*wt), reps=1, warmup=0)
+    finally:
+        set_jacobi_dispatch(None)
+    log(11, f"svd_jacobi [10^4, 40, 40] f32: kernel "
+        f"{kinds['svd_jacobi']['ms']!r} ms, plain "
+        f"{kinds['svd_jacobi']['plain_ms']!r} ms, torch.linalg.svd "
+        f"{ms_lapack!r} ms (one call) [{gpu}]")
+    log(11, f"IEnKS step (config 9): {ms_step!r} ms = "
+        f"{10000 / ms_step * 1e3!r} grid-points/s with K3; "
+        f"{ms_step_lapack!r} ms = {10000 / ms_step_lapack * 1e3!r} "
+        f"grid-points/s with torch.linalg.svd (one call) [{gpu}]")
+
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
                      "tpu_assim/ops/pallas/letkf.py:831"),
         "rk4_l96": ("tpu_assim_torch/csrc/rk4_l96.cu",
                     "tpu_assim/models/pallas_forecast.py:59"),
+        "svd_jacobi": ("tpu_assim_torch/csrc/svd_jacobi.cu",
+                       "tpu_assim/ops/pallas/svd.py:123"),
     }
     print(gpu)
     print(json.dumps({"kernels": [

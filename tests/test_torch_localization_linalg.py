@@ -25,6 +25,10 @@ from tpu_assim_torch.ops import etkf as te
 from tpu_assim_torch.ops import linalg as tl
 from tpu_assim_torch.ops import localization as tloc
 
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's spinning OpenMP threads would compete with JAX's for the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-10
 
 

@@ -26,6 +26,10 @@ from tpu_assim_torch.models import (
 )
 from tpu_assim_torch.models import cuda_forecast as cf
 
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's spinning OpenMP threads would compete with JAX's for the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-10
 
 

@@ -23,6 +23,10 @@ from tpu_assim.ops.pallas import letkf as J
 
 from tpu_assim_torch.ops.cuda import letkf as T
 
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's spinning OpenMP threads would compete with JAX's for the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-10
 
 

@@ -6,7 +6,8 @@ plain C interface, for Hopper (``sm_90a``), into ``csrc/build/``. The
 library's file name carries a hash of its source and of the compile flags,
 so an edited source is rebuilt at its next use and an unchanged one is
 loaded as built. Nothing here runs at import: the first call of a kernel
-wrapper builds what it needs.
+wrapper builds what it needs, and :func:`build_all` runs one nvcc per
+missing source, all at once.
 """
 
 import ctypes
@@ -16,13 +17,14 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["KERNELS", "SMEM_PER_BLOCK", "build_all", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("letkf_window1d", "rk4_l96")
+KERNELS = ("letkf_window1d", "rk4_l96", "svd_jacobi")
 # Shared memory one block may use on Hopper (227 KB), which bounds the
 # shapes the kernels take.
 SMEM_PER_BLOCK = 232448
@@ -87,8 +89,13 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every kernel library; return the seconds it took."""
+    """Build every missing kernel library, one nvcc process per source, all
+    started together; then load them all. Return the seconds it took."""
     t0 = time.perf_counter()
+    missing = [n for n in KERNELS if not _library_path(n).is_file()]
+    with ThreadPoolExecutor(max_workers=max(len(missing), 1)) as pool:
+        reports = pool.map(lambda n: _compile(n, _library_path(n)), missing)
+        BUILD_LOG.update(zip(missing, reports))
     for name in KERNELS:
         load_library(name)
     return time.perf_counter() - t0

@@ -5,13 +5,14 @@ The complete analysis — obs operator, R^{-1/2} normalization, innovation,
 Gaspari-Cohn taper, weight solve and weight application — runs on the
 device of the state tensor. Two LETKF solvers are ported:
 
-- ``method="eigh"``: exact eigendecomposition over the dense taper, the f64
-  oracle;
+- ``method="eigh"``: exact eigendecomposition, over the dense taper (the
+  f64 oracle) or over fixed-size neighborhoods (``max_obs``);
 - ``method="fused1d"``: the whole analysis in one CUDA kernel
   (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_window_analysis_fused`).
 
 The other solvers of the JAX package raise ``NotImplementedError`` and name
-their ROADMAP.md item.
+their ROADMAP.md item. :func:`make_lienks_step` is the localized IEnKS
+smoother.
 """
 
 from typing import Callable, Optional
@@ -28,10 +29,21 @@ from tpu_assim_torch.ops.cuda.letkf import (
     letkf_window_analysis_fused,
     max_in_support_1d,
 )
-from tpu_assim_torch.ops.etkf import etkf_weights, letkf_weights_dense
-from tpu_assim_torch.ops.localization import GaspariCohnInf
+from tpu_assim_torch.ops.etkf import (
+    etkf_weights,
+    letkf_weights_dense,
+    letkf_weights_nbh,
+)
+from tpu_assim_torch.ops.ienks import ienks_bundle_step, ienks_transform_step
+from tpu_assim_torch.ops.localization import (
+    GaspariCohnInf,
+    neighborhood_select,
+    neighborhood_select_window,
+    safe_sqrt,
+)
 
-__all__ = ["make_cycle_step", "make_etkf_analysis", "make_letkf_analysis"]
+__all__ = ["make_cycle_step", "make_etkf_analysis", "make_letkf_analysis",
+           "make_lienks_step"]
 
 _NOT_PORTED = {
     "newton": "ROADMAP.md Queue 1 item 2 (Newton-Schulz solves)",
@@ -77,6 +89,37 @@ def _taper_name(localization) -> str:
     return "gcinf" if isinstance(localization, GaspariCohnInf) else "gc2"
 
 
+def _with_time(coords):
+    """Localization info rows: a time column (zero), then the coords."""
+    return torch.cat([torch.zeros_like(coords[:, :1]), coords], dim=1)
+
+
+def _select(localization, grid_info, obs_info, max_obs, selection, strict):
+    """The fixed-size neighborhoods of ``selection`` ("window" or "topk")."""
+    if selection == "window":
+        return neighborhood_select_window(localization, grid_info, obs_info,
+                                          max_obs, strict=strict)
+    return neighborhood_select(localization, grid_info, obs_info, max_obs)
+
+
+def _check_selection(selection: str) -> None:
+    if selection not in ("topk", "window"):
+        raise ValueError(f"selection must be 'topk' or 'window'; got "
+                         f"{selection!r}")
+
+
+def _forecast(integrator, n_steps: int, state_data):
+    """``n_steps`` of ``integrator``: the fused RK4 kernel wherever
+    :func:`supports_fused_rk4` holds, else the integrator's own steps."""
+    if supports_fused_rk4(integrator, state_data.shape,
+                          state_data.element_size()):
+        return fused_rk4_steps(integrator.model, state_data.contiguous(),
+                               integrator.dt, n_steps)
+    for _ in range(n_steps):
+        state_data = integrator.integrate(state_data)
+    return state_data
+
+
 def make_letkf_analysis(
     localization,
     inf_factor: float = 1.0,
@@ -85,6 +128,7 @@ def make_letkf_analysis(
     method: str = "eigh",
     max_obs: Optional[int] = None,
     cheb_degree: int = 16,
+    selection: str = "topk",
     max_obs_strict: bool = True,
     geometry: Optional[tuple] = None,
 ):
@@ -97,16 +141,21 @@ def make_letkf_analysis(
     chunksize : grid columns per chunk of the dense taper (memory bound).
     obs_operator : optional callable ``[..., grid] -> [..., obs]``; by
         default the observations are point observations at ``obs_idx``.
-    method : ``"eigh"`` — exact eigendecomposition over the dense taper
-        (``max_obs`` must be None); ``"fused1d"`` — the whole analysis in
-        one kernel, for sorted 1-D obs coordinates (column 0 of the
-        coordinates) and a single-radius Gaspari-Cohn taper; needs
-        ``max_obs``.
-    max_obs : the window size of ``fused1d``.
+    method : ``"eigh"`` — exact eigendecomposition, over the dense taper or,
+        with ``max_obs``, over each column's ``max_obs`` selected
+        observations; ``"fused1d"`` — the whole analysis in one kernel, for
+        sorted 1-D obs coordinates (column 0 of the coordinates) and a
+        single-radius Gaspari-Cohn taper; needs ``max_obs``.
+    max_obs : the neighborhood size of ``eigh`` (None: the dense taper) and
+        the window size of ``fused1d``.
     cheb_degree : Chebyshev degree of ``fused1d``.
-    max_obs_strict : ``fused1d`` raises at call (or build) time when a
-        column has more in-support observations than ``max_obs``, and the
-        kernel NaN-poisons such columns; False accepts truncation to the
+    selection : how ``eigh`` with ``max_obs`` picks the neighborhoods:
+        ``"topk"`` (largest taper weights) or ``"window"`` (sorted 1-D obs
+        coordinates; see
+        :func:`tpu_assim_torch.ops.localization.neighborhood_select_window`).
+    max_obs_strict : the window selections NaN-poison columns with more
+        in-support observations than ``max_obs``, and ``fused1d`` also
+        raises at call (or build) time; False accepts truncation to the
         nearest.
     geometry : optional ``(obs_idx, grid_coords, obs_coords)`` arrays
         (``obs_idx`` None with an ``obs_operator``), fixed across calls:
@@ -124,11 +173,7 @@ def make_letkf_analysis(
             f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
     if method not in ("eigh", "fused1d"):
         raise ValueError(f"unknown method {method!r}")
-    if method == "eigh" and max_obs is not None:
-        raise NotImplementedError(
-            "method='eigh' with max_obs needs the neighborhood selections, "
-            "not ported yet: ROADMAP.md Queue 1 item 2 "
-            "(neighborhood_select, neighborhood_select_window)")
+    _check_selection(selection)
     fused = method == "fused1d"
     if fused:
         if localization is None or max_obs is None:
@@ -179,13 +224,14 @@ def make_letkf_analysis(
                 strict=max_obs_strict,
             )
 
-        # localization info rows: a time column (zero), then the coords
-        def with_time(coords):
-            return torch.cat([torch.zeros_like(coords[:, :1]), coords], dim=1)
-
-        obs_info = with_time(obs_coords)
+        obs_info = _with_time(obs_coords)
 
         def chunk_fn(g_chunk):
+            if localization is not None and max_obs is not None:
+                idx, w_nbh = _select(localization, g_chunk, obs_info,
+                                     max_obs, selection, max_obs_strict)
+                return letkf_weights_nbh(perts, innov, idx,
+                                         w_nbh.to(perts.dtype), inf_factor)
             if localization is None:
                 w_loc = torch.ones(g_chunk.shape[0], obs_info.shape[0],
                                    dtype=perts.dtype, device=perts.device)
@@ -194,7 +240,7 @@ def make_letkf_analysis(
                     perts.dtype)
             return letkf_weights_dense(perts, innov, w_loc, inf_factor)
 
-        weights = map_grid_chunked(chunk_fn, with_time(grid_coords),
+        weights = map_grid_chunked(chunk_fn, _with_time(grid_coords),
                                    chunksize)                      # [g,k,k]
         mean = torch.mean(state_data, dim=0, keepdim=True)
         return mean + torch.einsum("kg,gkm->mg", state_data - mean, weights)
@@ -269,16 +315,120 @@ def make_cycle_step(
     analyse = make_letkf_analysis(localization, inf_factor, chunksize,
                                   **analysis_opts)
 
-    def _forecast(state_data):
-        if supports_fused_rk4(integrator, state_data.shape,
-                              state_data.element_size()):
-            return fused_rk4_steps(integrator.model, state_data,
-                                   integrator.dt, n_int_steps)
-        for _ in range(n_int_steps):
-            state_data = integrator.integrate(state_data)
-        return state_data
-
     def step(state_data, *args):
-        return analyse(_forecast(state_data), *args)
+        return analyse(_forecast(integrator, n_int_steps, state_data), *args)
+
+    return step
+
+
+def make_lienks_step(
+    localization,
+    integrator,
+    n_int_steps: int,
+    n_outer: int = 3,
+    kind: str = "transform",
+    tau: float = 1.0,
+    epsilon: float = 1e-4,
+    max_obs: Optional[int] = None,
+    selection: str = "window",
+    max_obs_strict: bool = True,
+    obs_operator: Optional[Callable] = None,
+):
+    """Build a localized-IEnKS analysis (the 4D-Var-shaped smoother) for a
+    [k, g] ensemble over a fixed assimilation window.
+
+    Per outer iteration: apply the current per-column weights to the prior
+    ensemble, propagate the weighted ensemble ``n_int_steps`` model steps
+    (the fused RK4 kernel wherever :func:`supports_fused_rk4` holds), apply
+    the obs operator, normalize by R^{-1/2}, and run one localized
+    Gauss-Newton inner step per grid column
+    (:func:`tpu_assim_torch.ops.ienks.ienks_transform_step` /
+    ``ienks_bundle_step``, batched [g, k, k]). Each inner step takes two
+    batched K x K SVDs, which go to the one-sided Jacobi kernel for large
+    f32 batches on CUDA. The neighborhood selection and its ``safe_sqrt``
+    weights are computed once per call, before the outer loop, which runs
+    on the device without a host sync.
+
+    Parameters
+    ----------
+    localization : Gaspari-Cohn taper (or None for global).
+    integrator / n_int_steps : forward model for the window (e.g.
+        ``RK4Integrator(Lorenz96(), dt)``); None or 0 steps skips
+        propagation.
+    kind : ``"transform"`` (dH/dW through the inverted weight
+        perturbations) or ``"bundle"`` (finite-difference scale
+        ``epsilon``).
+    max_obs / selection / max_obs_strict : fixed-size neighborhood
+        selection, as in :func:`make_letkf_analysis`; ``max_obs=None``
+        takes the dense taper.
+
+    Returns
+    -------
+    step(state_data [k, g], obs_vals [o], obs_var [o], obs_idx [o],
+         grid_coords [g, d], obs_coords [o, d]) -> analysis [k, g]
+    """
+    if kind not in ("transform", "bundle"):
+        raise ValueError(f"kind must be 'transform' or 'bundle', got {kind!r}")
+    _check_selection(selection)
+
+    def _forward(state_data):
+        if integrator is None or n_int_steps == 0:
+            return state_data
+        return _forecast(integrator, n_int_steps, state_data)
+
+    def step(state_data, obs_vals, obs_var, obs_idx, grid_coords,
+             obs_coords):
+        k, g = state_data.shape
+        dtype, device = state_data.dtype, state_data.device
+        mean = torch.mean(state_data, dim=0)
+        perts = state_data - mean[None, :]                     # [k, g]
+        grid_info = _with_time(grid_coords)
+        obs_info = _with_time(obs_coords)
+        if localization is not None and max_obs is not None:
+            idx, w_nbh = _select(localization, grid_info, obs_info, max_obs,
+                                 selection, max_obs_strict)
+            sqrt_w = safe_sqrt(w_nbh).to(dtype)               # [g, nb]
+        else:
+            idx = None
+            if localization is None:
+                w_loc = torch.ones(g, obs_info.shape[0], dtype=dtype,
+                                   device=device)
+            else:
+                w_loc = localization.taper_weights(grid_info,
+                                                   obs_info).to(dtype)
+            sqrt_w = safe_sqrt(w_loc)                          # [g, o]
+
+        eye = torch.eye(k, dtype=dtype, device=device)
+        weights = eye.expand(g, k, k)
+        for _ in range(n_outer):
+            if kind == "bundle":
+                # the bundle propagates with eps I + mean(W)
+                w_model = epsilon * eye + torch.mean(weights, dim=-1,
+                                                     keepdim=True)
+            else:
+                w_model = weights
+            pseudo = mean[None, :] + torch.einsum("kg,gkm->mg", perts,
+                                                  w_model)
+            pseudo = _forward(pseudo)
+            if obs_operator is None:
+                ens_obs = pseudo[:, obs_idx]                   # [k, o]
+            else:
+                ens_obs = obs_operator(pseudo)
+            perts_o, innov = _normalized_obs_space(ens_obs, obs_vals,
+                                                   obs_var)
+            if idx is not None:
+                scaled_perts = (perts_o[:, idx].permute(1, 0, 2)
+                                * sqrt_w[:, None, :])          # [g, k, nb]
+                scaled_obs = (innov[idx] * sqrt_w)[:, None, :]
+            else:
+                scaled_perts = perts_o[None, :, :] * sqrt_w[:, None, :]
+                scaled_obs = (innov[None, :] * sqrt_w)[:, None, :]
+            if kind == "bundle":
+                weights = ienks_bundle_step(weights, scaled_perts,
+                                            scaled_obs, tau, epsilon)
+            else:
+                weights = ienks_transform_step(weights, scaled_perts,
+                                               scaled_obs, tau)
+        return mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
 
     return step

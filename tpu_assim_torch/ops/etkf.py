@@ -25,6 +25,7 @@ __all__ = [
     "etkf_weights",
     "etkf_weights_from_gram",
     "letkf_weights_dense",
+    "letkf_weights_nbh",
 ]
 
 
@@ -110,6 +111,40 @@ def letkf_weights_dense(
     weighted = normed_perts * obs_weights[..., None, :]          # [..., k, l]
     kernel_perts = weighted @ normed_perts.T                     # [..., k, k]
     kernel_obs = (weighted @ normed_obs)[..., None]              # [..., k, 1]
+    w_mean, w_perts, _ = etkf_weights_from_gram(
+        kernel_perts, kernel_obs, ens_size, inf_factor, method=method)
+    return w_mean + w_perts
+
+
+def letkf_weights_nbh(
+    normed_perts: torch.Tensor,
+    normed_obs: torch.Tensor,
+    nbh_idx: torch.Tensor,
+    nbh_weights: torch.Tensor,
+    inf_factor=1.0,
+    method: str = "eigh",
+) -> torch.Tensor:
+    """Localized ETKF weights over fixed-size obs neighborhoods: the math of
+    :func:`letkf_weights_dense`, with each column's Gram products over only
+    its ``nb`` selected observations
+    (:func:`tpu_assim_torch.ops.localization.neighborhood_select`).
+
+    Parameters
+    ----------
+    normed_perts : [k, o] normalized obs-space perturbations (shared).
+    normed_obs : [o] normalized innovations (shared).
+    nbh_idx : [g, nb] obs indices per grid column.
+    nbh_weights : [g, nb] taper weights of the selected obs (0 = padding).
+
+    Returns ``[g, k, k]`` per-column weight matrices.
+    """
+    _check_method(method)
+    normed_obs = normed_obs.reshape(-1)
+    ens_size = normed_perts.shape[-2]
+    z = normed_perts[:, nbh_idx]                                  # [k, g, nb]
+    y = normed_obs[nbh_idx]                                       # [g, nb]
+    kernel_perts = torch.einsum("kgn,gn,mgn->gkm", z, nbh_weights, z)
+    kernel_obs = torch.einsum("kgn,gn,gn->gk", z, nbh_weights, y)[..., None]
     w_mean, w_perts, _ = etkf_weights_from_gram(
         kernel_perts, kernel_obs, ens_size, inf_factor, method=method)
     return w_mean + w_perts

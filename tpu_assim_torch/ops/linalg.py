@@ -2,11 +2,17 @@
 Batched linear-algebra helpers for the analysis cores (PyTorch port of
 :mod:`tpu_assim.ops.linalg`), over arbitrary leading batch dimensions.
 
+:func:`svd` and :func:`eigh_psd` send large square f32 batches on a CUDA
+device to the one-sided Jacobi kernel
+(:mod:`tpu_assim_torch.ops.cuda.svd`), under the JAX package's gate; all
+else goes to :func:`torch.linalg.svd` / :func:`torch.linalg.eigh`.
+
 Forward only: the Daleckii-Krein derivative of
-:func:`inv_and_inv_sqrt_psd_eigh` is not ported yet.
+:func:`inv_and_inv_sqrt_psd_eigh` and the SVD pullback are not ported yet.
 """
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,20 +21,100 @@ __all__ = [
     "eigh_psd",
     "evd",
     "inv_and_inv_sqrt_psd_eigh",
+    "jacobi_dispatch_enabled",
     "matrix_product",
     "rev_evd",
+    "rev_svd",
+    "set_jacobi_dispatch",
+    "svd",
 ]
 
+# Device types whose f32 batches go to the Jacobi kernel.
+JACOBI_DEVICE_TYPES = ("cuda",)
 
-def eigh_psd(tensor: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+_jacobi_dispatch: Optional[bool] = None  # None: take the env-var default
+
+
+def set_jacobi_dispatch(enabled: Optional[bool]) -> None:
+    """Set the process-wide default of the Jacobi-kernel dispatch of
+    :func:`svd` and :func:`eigh_psd`: ``True``/``False`` force it on/off,
+    ``None`` restores the environment default (``TPU_ASSIM_JACOBI``, on
+    unless set to ``"0"``)."""
+    global _jacobi_dispatch
+    _jacobi_dispatch = enabled
+
+
+def jacobi_dispatch_enabled() -> bool:
+    """The current default of the Jacobi-kernel dispatch: the value of
+    :func:`set_jacobi_dispatch`, else ``TPU_ASSIM_JACOBI``."""
+    if _jacobi_dispatch is not None:
+        return _jacobi_dispatch
+    return os.environ.get("TPU_ASSIM_JACOBI", "1") != "0"
+
+
+def _takes_jacobi(tensor: torch.Tensor, use_jacobi: Optional[bool]) -> bool:
+    """The JAX package's gate: an f32 batch of at least 256 square
+    matrices with K <= 64, on a kernel device, dispatch enabled."""
+    if use_jacobi is None:
+        use_jacobi = jacobi_dispatch_enabled()
+    k = tensor.shape[-1]
+    return bool(
+        use_jacobi
+        and tensor.dtype == torch.float32
+        and tensor.ndim >= 3
+        and tensor.shape[-2] == k
+        and k <= 64
+        and tensor.shape[:-2].numel() >= 256
+        and tensor.device.type in JACOBI_DEVICE_TYPES
+    )
+
+
+def svd(tensor: torch.Tensor, reg_value=0.0,
+        use_jacobi: Optional[bool] = None):
+    """Reduced SVD with the singular values shifted by ``reg_value``.
+
+    Returns ``(u, s, v)`` with ``tensor = u diag(s) v^T``: ``v``, not
+    ``v^T``, as :func:`torch.svd`. Large square f32 batches on CUDA go to
+    :func:`tpu_assim_torch.ops.cuda.svd.svd_jacobi` (``use_jacobi``,
+    :func:`set_jacobi_dispatch` and ``TPU_ASSIM_JACOBI`` control it); the
+    rest to :func:`torch.linalg.svd`.
+    """
+    if _takes_jacobi(tensor, use_jacobi):
+        from tpu_assim_torch.ops.cuda.svd import svd_jacobi
+
+        u, s, v = svd_jacobi(tensor)
+    else:
+        u, s, vh = torch.linalg.svd(tensor, full_matrices=False)
+        v = vh.transpose(-1, -2)
+    return u, s + reg_value, v
+
+
+def rev_svd(u: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Recompose ``u diag(s) v^T``."""
+    return torch.einsum("...ik,...k,...jk->...ij", u, s, v)
+
+
+def eigh_psd(tensor: torch.Tensor, use_jacobi: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched symmetric eigendecomposition: ascending eigenvalues and
     eigenvector columns, as :func:`torch.linalg.eigh`.
 
-    This calls :func:`torch.linalg.eigh` on every device, which is what the
-    JAX package does off the TPU. On CUDA the batched one-sided Jacobi
-    kernel (the port of ``tpu_assim.ops.pallas.svd.eigh_svd_jacobi``) is to
-    take over large f32 batches in a later change.
+    Large f32 batches on CUDA go through the one-sided Jacobi kernel
+    (:func:`tpu_assim_torch.ops.cuda.svd.eigh_svd_jacobi`), under the gate
+    of :func:`svd`; the rest to :func:`torch.linalg.eigh`. That route is
+    exact for PSD inputs, and for symmetric ones without an exact
+    +lambda/-lambda magnitude tie. ``TPU_ASSIM_EIGH_KERNEL=twosided``
+    selects the two-sided Jacobi kernel, which is not ported yet and
+    raises.
     """
+    if _takes_jacobi(tensor, use_jacobi):
+        if os.environ.get("TPU_ASSIM_EIGH_KERNEL", "onesided") == "twosided":
+            raise NotImplementedError(
+                "TPU_ASSIM_EIGH_KERNEL=twosided needs the two-sided Jacobi "
+                "eigh kernel, not ported yet: ROADMAP.md Queue 2 K7")
+        from tpu_assim_torch.ops.cuda.svd import eigh_svd_jacobi
+
+        return eigh_svd_jacobi(tensor)
     return torch.linalg.eigh(tensor)
 
 

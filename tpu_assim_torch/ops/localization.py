@@ -11,7 +11,10 @@ products of :func:`tpu_assim_torch.ops.etkf.letkf_weights_dense`.
 Distance functions are user-supplied torch callables
 ``dist_func(grid_coord [d], obs_coords [o, d]) -> [n_dim, o] or [o]``.
 
-The top-k and window ``neighborhood_select*`` selections are not ported yet.
+The fixed-size neighborhood selections pick ``max_obs`` observations per
+grid column: by the largest taper weights (:func:`neighborhood_select`), or
+as a window around the column's rank among sorted coordinates
+(:func:`neighborhood_select_window`).
 """
 
 import functools
@@ -24,6 +27,8 @@ __all__ = [
     "GaspariCohn",
     "GaspariCohnInf",
     "abs_distance",
+    "neighborhood_select",
+    "neighborhood_select_window",
     "periodic_distance",
     "safe_sqrt",
     "taper_support_z",
@@ -258,3 +263,93 @@ def taper_support_z(taper: str = "gc2", epsilon: float = 1e-5) -> float:
             hi = mid
     # the upper end of the bracket: boundary-shell obs count as in-support
     return hi
+
+
+def neighborhood_select(localization, grid_coords: torch.Tensor,
+                        obs_coords: torch.Tensor, max_obs: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-size obs neighborhoods: the ``max_obs`` largest-taper-weight
+    observations of each grid column, ties to the lower index (as
+    ``jax.lax.top_k``).
+
+    Exact whenever no column has more than ``max_obs`` nonzero-weight
+    observations: the rest carry weight 0 and add nothing to the weighted
+    Gram products. Otherwise it truncates to the largest weights. With
+    fewer than ``max_obs`` observations the neighborhoods are zero-padded
+    (index 0, weight 0).
+
+    Returns ``(idx [g, max_obs] int64, weights [g, max_obs])``.
+    """
+    weights = localization.taper_weights(grid_coords, obs_coords)  # [g, o]
+    k = min(max_obs, weights.shape[-1])
+    top_w, top_idx = torch.sort(weights, dim=-1, descending=True,
+                                stable=True)
+    top_w, top_idx = top_w[:, :k], top_idx[:, :k]
+    if k < max_obs:
+        pad = (0, max_obs - k)
+        top_w = torch.nn.functional.pad(top_w, pad)
+        top_idx = torch.nn.functional.pad(top_idx, pad)
+    return top_idx, top_w
+
+
+def neighborhood_select_window(localization, grid_coords: torch.Tensor,
+                               obs_coords: torch.Tensor, max_obs: int,
+                               coord_col: int = 1, strict: bool = True
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-size obs neighborhoods by sorted-coordinate window, the exact
+    fast path for 1-D domains.
+
+    The observations must be sorted along column ``coord_col`` of
+    ``obs_coords``, and the taper monotone in ``|x - y|`` along it. Each
+    column's window of ``max_obs`` observations is centred on the column's
+    rank (``searchsorted``) among the observation coordinates. For a
+    single-radius Gaspari-Cohn taper it is then clamped onto the column's
+    in-support index range ``[low, high)``, and ``strict`` gives NaN weights
+    to every column with more than ``max_obs`` in-support observations.
+    Unsorted coordinates give NaN weights everywhere. With fewer than
+    ``max_obs`` observations the neighborhoods are zero-padded.
+
+    ``localization`` must expose ``taper_from_dist`` and ``dist_func``.
+
+    Returns ``(idx [g, max_obs] int64, weights [g, max_obs])``.
+    """
+    obs_x = obs_coords[:, coord_col].contiguous()
+    grid_x = grid_coords[:, coord_col].contiguous()
+    n_obs = obs_x.shape[0]
+    nb = min(max_obs, n_obs)
+    sorted_ok = (torch.all(obs_x[1:] >= obs_x[:-1]) if n_obs > 1
+                 else torch.ones((), dtype=torch.bool, device=obs_x.device))
+    center = torch.searchsorted(obs_x, grid_x)
+    start = torch.clamp(center - nb // 2, 0, n_obs - nb)
+    overflow = torch.zeros_like(grid_x)
+    radius = np.atleast_1d(np.asarray(getattr(localization, "radius", np.nan),
+                                      dtype=float))
+    if (isinstance(localization, (GaspariCohn, GaspariCohnInf))
+            and radius.size == 1 and nb < n_obs):
+        taper = "gcinf" if isinstance(localization, GaspariCohnInf) else "gc2"
+        # rounded once, as f32(z* r) and not f32(z*) f32(r); a 0-d CPU
+        # tensor, so that no copy to the device syncs the host
+        sup = torch.tensor(
+            taper_support_z(taper, localization.epsilon) * radius[0],
+            dtype=obs_x.dtype)
+        low = torch.searchsorted(obs_x, grid_x - sup, right=True)
+        high = torch.searchsorted(obs_x, grid_x + sup)
+        # jnp.clip order: the upper bound wins where low < high - nb
+        start = torch.minimum(torch.maximum(center - nb // 2, high - nb), low)
+        start = torch.clamp(start, 0, n_obs - nb)
+        if strict:
+            overflow = torch.where(high - low > nb, torch.nan, 0.0).to(
+                grid_x.dtype)
+    idx = start[:, None] + torch.arange(nb, device=start.device)[None, :]
+    dist = torch.vmap(
+        lambda gc, oi: torch.atleast_2d(localization.dist_func(gc, oi))
+    )(grid_coords, obs_coords[idx])                      # [g, n_dim, nb]
+    weights = localization.taper_from_dist(dist)         # [g, nb]
+    weights = weights + torch.where(sorted_ok, 0.0, torch.nan).to(
+        weights.dtype)
+    weights = weights + overflow[:, None].to(weights.dtype)
+    if nb < max_obs:
+        pad = (0, max_obs - nb)
+        weights = torch.nn.functional.pad(weights, pad)
+        idx = torch.nn.functional.pad(idx, pad)
+    return idx, weights
