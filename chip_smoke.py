@@ -1,9 +1,10 @@
 """
 Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
-Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis) and the localized
-IEnKS smoother (Jacobi SVD + fused RK4) at the reference benchmark shapes,
-checks them against f64 oracles, and times the kernels.
+Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
+IEnKS smoother (Jacobi SVD + fused RK4), the neighborhood solvers (cheb,
+pallas) and the LETKF class API at the reference benchmark shapes, checks
+them against f64 oracles, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -16,6 +17,11 @@ Phases (one line each; any failure exits non-zero):
      through both kernels          against its f64 step
   6 large analysis (ens 100,    11 times of K3 and of the IEnKS step, with
      2^20 columns)                 K3 and with LAPACK
+ 12 K4 (cheb) against plain     15 the class API: LETKF.assimilate through
+ 13 K5 (Newton-Schulz) against     K4 (filter, smoother) and K1 (smoother)
+    plain                          against f64 eigh
+ 14 cheb and pallas analyses    16 times of K4, K5 and the class API
+    against f64 eigh
 Then one JSON line with each kernel's launches, error and times, the card's
 name and power limit, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -39,8 +45,10 @@ from tpu_assim_torch.analysis import (
     make_letkf_analysis,
     make_lienks_step,
 )
+from tpu_assim_torch import LETKF, EnsembleState, Observation
 from tpu_assim_torch.convert import coord1_distance
 from tpu_assim_torch.models import Lorenz96, RK4Integrator
+from tpu_assim_torch.obs_ops import IdentityOperator
 from tpu_assim_torch.models import cuda_forecast as k2
 from tpu_assim_torch.ops import ienks
 from tpu_assim_torch.ops.cuda import letkf as k1
@@ -49,6 +57,7 @@ from tpu_assim_torch.ops.linalg import rev_svd, set_jacobi_dispatch
 from tpu_assim_torch.ops.localization import (
     GaspariCohn,
     neighborhood_select_window,
+    safe_sqrt_keep_nan,
 )
 
 SEED = 42
@@ -58,6 +67,9 @@ NB = 12             # window of the headline cell: exact, as it is >= the
                     # workload's in-support maximum of 8
 FACTOR_TOL = 1e-4   # K3: reconstruction (relative to max|A|) and
                     # orthogonality max|Q^T Q - I|
+PALLAS_TOL = 2e-4   # method="pallas" against the f64 oracle: the JAX
+                    # package's bound for K5 (tests/test_etkf_core.py:363)
+NS_ITERS = 25       # make_letkf_analysis's default newton_iters
 
 
 def log(phase, msg):
@@ -144,6 +156,59 @@ def run_window(args, nb, taper="gc2", strict=True, plain=False):
         reg, RADIUS, ens_size=k, nb=nb, degree=DEGREE, epsilon=1e-5,
         taper=taper, strict=strict)
     return out if multi else out[0]
+
+
+def nbh_inputs(loc, wt, nb, ns=1):
+    """K4's inputs for workload tensors ``wt``: the strict window
+    neighborhoods of ``nb`` observations, sqrt-weight scaled as
+    ``make_letkf_analysis(method="cheb")`` scales them, and ``ns`` stacked
+    state slices (the member perturbations, shifted)."""
+    state, obs_vals, obs_var, obs_idx, grid_coords, obs_coords = wt
+    perts, innov = _normalized_obs_space(state[:, obs_idx.long()], obs_vals,
+                                         obs_var)
+    idx, w_nbh = neighborhood_select_window(
+        loc, _with_time(grid_coords), _with_time(obs_coords), nb)
+    sw = safe_sqrt_keep_nan(w_nbh)
+    zh = perts[:, idx].permute(2, 0, 1) * sw.T[:, None, :]      # [nb, k, g]
+    yh = innov[idx].T * sw.T                                    # [nb, g]
+    mean = state.mean(0)
+    sp = state - mean
+    sp = torch.stack([torch.roll(sp, s, dims=1) for s in range(ns)])
+    mean = torch.stack([mean + s for s in range(ns)])
+    return [t.contiguous() for t in (zh, yh, sp, mean)]
+
+
+def ns_inputs(args):
+    """K5's layout [g, nb, k], [g, nb], [g, k], [g] of K4's inputs (first
+    state slice)."""
+    zh, yh, sp, mean = args
+    return [t.contiguous() for t in (zh.permute(2, 0, 1), yh.T, sp[0].T,
+                                     mean[0])]
+
+
+def run_cheb(args, degree, plain=False):
+    k = args[0].shape[1]
+    fn = k1.nbh_cheb_plain if plain else k1.letkf_nbh_analysis_cheb
+    return fn(*args, (k - 1) / INF, k, degree)
+
+
+def run_ns(args, iters, plain=False):
+    k = args[0].shape[2]
+    fn = k1.nbh_fused_plain if plain else k1.letkf_nbh_analysis_fused
+    return fn(*args, (k - 1) / INF, k, iters)
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with every kernel's launch count set to 0 just before;
+    returns the result and the counts read just after, those of 0
+    left out."""
+    for table in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES):
+        for name in table:
+            table[name] = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES}
+    return out, {n: c for n, c in counts.items() if c}
 
 
 def svd_vs_plain(a, label):
@@ -489,29 +554,21 @@ def main():
         f"the f64 eigh oracle: max rel err {rel9!r} (budget {TOL})")
 
     # -- 10. the localized IEnKS at bench config 9 -------------------------
-    def lienks_launches(step, args):
-        for table in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES):
-            for name in table:
-                table[name] = 0
-        out = step(*args)
-        torch.cuda.synchronize()
-        return out, {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES}
-
-    expected = {"window1d": 0, "rk4_l96": 2, "svd_jacobi": 4}
-    out10, launches10 = lienks_launches(lienks, wt)
+    expected = {"rk4_l96": 2, "svd_jacobi": 4}
+    out10, launches10 = counted(lienks, *wt)
     check(launches10 == expected, f"IEnKS step launches {launches10}")
     check(bool(torch.isfinite(out10).all()), "IEnKS step not finite")
     launches["svd_jacobi"] = launches10["svd_jacobi"]
     t0 = time.perf_counter()
-    oracle10, launches64 = lienks_launches(lienks, w64)
+    oracle10, launches64 = counted(lienks, *w64)
     s64 = time.perf_counter() - t0
-    check(launches64 == {n: 0 for n in expected},
+    check(launches64 == {},
           f"the f64 step launched kernels: {launches64}")
     _, rel10 = compare(out10, oracle10, "IEnKS f32 vs f64")
     bundle = make_lienks_step(loc, RK4Integrator(Lorenz96(), 0.05), 4,
                               n_outer=2, kind="bundle", tau=1.0,
                               max_obs=exact_nb(worst), selection="window")
-    out_b, launches_b = lienks_launches(bundle, wt)
+    out_b, launches_b = counted(bundle, *wt)
     check(launches_b == expected, f"IEnKS bundle launches {launches_b}")
     check(bool(torch.isfinite(out_b).all()), "IEnKS bundle not finite")
     log(10, f"IEnKS transform (ens 40, grid 10000, obs 1000, GC r=20, 2 "
@@ -541,6 +598,8 @@ def main():
         f"{ms_step_lapack!r} ms = {10000 / ms_step_lapack * 1e3!r} "
         f"grid-points/s with torch.linalg.svd (one call) [{gpu}]")
 
+    nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
+
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
                      "tpu_assim/ops/pallas/letkf.py:831"),
@@ -548,6 +607,10 @@ def main():
                     "tpu_assim/models/pallas_forecast.py:59"),
         "svd_jacobi": ("tpu_assim_torch/csrc/svd_jacobi.cu",
                        "tpu_assim/ops/pallas/svd.py:123"),
+        "nbh_cheb": ("tpu_assim_torch/csrc/letkf_nbh_cheb.cu",
+                     "tpu_assim/ops/pallas/letkf.py:668"),
+        "nbh_ns": ("tpu_assim_torch/csrc/letkf_nbh_ns.cu",
+                   "tpu_assim/ops/pallas/letkf.py:322"),
     }
     print(gpu)
     print(json.dumps({"kernels": [
@@ -559,6 +622,180 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def class_api_inputs(data, w, n_times):
+    """An EnsembleState of ``data`` [v, t, k, g] on the headline grid (vars
+    "x", "y"), and one Observation of variable "x" at the headline obs
+    points at every one of its ``n_times`` times, by IdentityOperator."""
+    dev = data.device
+    rnd = np.random.RandomState(SEED + 4)
+    times = torch.arange(n_times, dtype=data.dtype, device=dev)
+    state = EnsembleState(data, times=times,
+                          grid_coords=torch.as_tensor(w[4], device=dev),
+                          var_names=("x", "y")[:data.shape[0]])
+    n_obs = w[1].shape[0]
+    vals = rnd.normal(size=(n_times, n_obs))
+    obs = Observation(
+        torch.as_tensor(vals, dtype=data.dtype, device=dev),
+        torch.ones(n_obs, dtype=data.dtype, device=dev),
+        obs_coords=torch.as_tensor(w[5], dtype=data.dtype, device=dev),
+        times=times,
+        operator=IdentityOperator(obs_points=w[3], len_grid=data.shape[-1]))
+    return state, obs
+
+
+def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
+    """Phases 12-16: K4 and K5 against their plain versions, the cheb and
+    pallas analyses and the class API against f64 oracles, and times."""
+    g = w[0].shape[1]
+    # -- 12. K4 against its plain version ---------------------------------
+    a12 = nbh_inputs(loc, wt, NB)
+    before = k1.LAUNCHES["nbh_cheb"]
+    out = run_cheb(a12, DEGREE)
+    torch.cuda.synchronize()
+    check(k1.LAUNCHES["nbh_cheb"] == before + 1, "K4 launch not counted")
+    err_k4, rel = compare(out, run_cheb(a12, DEGREE, plain=True),
+                          "K4 vs plain (headline)")
+    notes = [f"headline (nb {NB}, ns 1, degree {DEGREE}) {err_k4!r} "
+             f"(rel {rel!r})"]
+    a6 = nbh_inputs(loc, wt, 36, ns=6)
+    e, rel = compare(run_cheb(a6, 48), run_cheb(a6, 48, plain=True),
+                     "K4 ns=6 nb=36 degree 48")
+    notes.append(f"ns 6, nb 36, degree 48 {e!r} (rel {rel!r})")
+    err_k4 = max(err_k4, e)
+    zero = [torch.zeros_like(a12[0]), torch.zeros_like(a12[1])] + a12[2:]
+    out = run_cheb(zero, DEGREE)
+    e, _ = compare(out, run_cheb(zero, DEGREE, plain=True), "K4 zero weights")
+    err_k4 = max(err_k4, e)
+    e_prior, _ = compare(out, a12[3][:, None, :] + INF ** 0.5 * a12[2],
+                         "K4 zero weights vs mean + sqrt(rho) sp")
+    notes.append(f"zero weights {e!r}, against mean + sqrt(rho) sp "
+                 f"{e_prior!r}")
+    wct = [torch.as_tensor(x, device=dev) for x in wc]
+    a_nan = nbh_inputs(loc, wct, NB)
+    out = run_cheb(a_nan, DEGREE)
+    e, _ = compare(out, run_cheb(a_nan, DEGREE, plain=True), "K4 NaN batch")
+    err_k4 = max(err_k4, e)
+    n_nan = int(torch.isnan(out).any(1).any(0).sum())
+    check(0 < n_nan < g, f"K4 NaN batch poisons {n_nan} columns")
+    notes.append(f"strict overflow {n_nan} NaN columns identical, others "
+                 f"{e!r}")
+    kinds["nbh_cheb"] = {"max_abs_err": err_k4}
+    log(12, f"K4 nbh_cheb [40, {g}] against plain, max abs err: "
+        + "; ".join(notes))
+
+    # -- 13. K5 against its plain version ---------------------------------
+    a13 = ns_inputs(a12)
+    check(tuple(a13[0].shape) == (g, NB, 40), f"K5 zh {a13[0].shape}")
+    notes = []
+    err_k5 = 0.0
+    for iters in (NS_ITERS, 10):
+        before = k1.LAUNCHES["nbh_ns"]
+        out = run_ns(a13, iters)
+        torch.cuda.synchronize()
+        check(k1.LAUNCHES["nbh_ns"] == before + 1, "K5 launch not counted")
+        e, rel = compare(out, run_ns(a13, iters, plain=True),
+                         f"K5 vs plain, {iters} iterations")
+        err_k5 = max(err_k5, e)
+        notes.append(f"{iters} iterations {e!r} (rel {rel!r})")
+    a_nan5 = ns_inputs(a_nan)
+    out = run_ns(a_nan5, NS_ITERS)
+    e, _ = compare(out, run_ns(a_nan5, NS_ITERS, plain=True), "K5 NaN batch")
+    err_k5 = max(err_k5, e)
+    n_nan5 = int(torch.isnan(out).any(1).sum())
+    check(n_nan5 == n_nan, f"K5 NaN batch: {n_nan5} NaN columns, K4 {n_nan}")
+    notes.append(f"strict overflow {n_nan5} NaN columns identical")
+    kinds["nbh_ns"] = {"max_abs_err": err_k5}
+    log(13, f"K5 nbh_ns [{g}, {NB}, 40] against plain, max abs err: "
+        + "; ".join(notes))
+
+    # -- 14. cheb and pallas analyses against the f64 oracle --------------
+    t0 = time.perf_counter()
+    oracle = make_letkf_analysis(loc, INF, method="eigh", max_obs=NB)(*w64)
+    s_oracle = time.perf_counter() - t0
+    cheb = make_letkf_analysis(loc, INF, method="cheb", selection="window",
+                               max_obs=NB, cheb_degree=DEGREE)
+    out, counts = counted(cheb, *wt)
+    check(counts == {"nbh_cheb": 1}, f"cheb analysis launches {counts}")
+    _, rel_cheb = compare(out, oracle, "cheb vs f64 eigh")
+    pallas = make_letkf_analysis(loc, INF, method="pallas", max_obs=NB,
+                                 newton_iters=NS_ITERS)
+    out, counts = counted(pallas, *wt)
+    check(counts == {"nbh_ns": 1}, f"pallas analysis launches {counts}")
+    launches["nbh_ns"] = counts.get("nbh_ns", 0)
+    out, ref = out.double(), oracle.double()
+    check(bool(torch.isfinite(out).all()), "pallas analysis not finite")
+    rel_pallas = float((out - ref).abs().max() / ref.abs().max())
+    check(rel_pallas <= PALLAS_TOL,
+          f"pallas vs f64 eigh: {rel_pallas!r} > {PALLAS_TOL}")
+    log(14, f"max_obs {NB} against the f64 eigh oracle ({s_oracle:.1f} s): "
+        f"cheb (window, degree {DEGREE}, 1 K4 launch) max rel err "
+        f"{rel_cheb!r} (budget {TOL}); pallas (topk, {NS_ITERS} iterations, "
+        f"1 K5 launch) {rel_pallas!r} (bound {PALLAS_TOL})")
+
+    # -- 15. the class API -------------------------------------------------
+    state, obs = class_api_inputs(wt[0][None, None], w, 1)
+    obs = obs.replace(observations=wt[1][None])
+    letkf = LETKF(loc, INF, max_obs=NB, method="cheb", selection="window",
+                  cheb_degree=DEGREE)
+    out, counts = counted(letkf.assimilate, state, obs)
+    check(counts == {"nbh_cheb": 2}, f"class cheb launches {counts}")
+    launches["nbh_cheb"] = counts.get("nbh_cheb", 0)
+    check(out.shape == state.shape and out.dtype == torch.float32,
+          f"class cheb analysis {tuple(out.shape)} {out.dtype}")
+    _, rel_class = compare(out.data[0, 0], oracle, "class cheb vs f64 eigh")
+    notes = [f"filter [1, 1, 40, {g}] cheb (2 K4 launches) {rel_class!r}"]
+
+    rnd = np.random.RandomState(SEED + 5)
+    data = torch.as_tensor(rnd.normal(size=(2, 3, 40, g)).astype(np.float32),
+                           device=dev)
+    state, obs = class_api_inputs(data, w, 3)
+    state64, obs64 = class_api_inputs(data.double(), w, 3)
+    stacked_x = np.sort(np.tile(w[5][:, 0], 3))
+    nb_s = exact_nb(k1.max_in_support_1d(stacked_x, w[4][:, 0], RADIUS))
+    t0 = time.perf_counter()
+    oracle_s = LETKF(loc, INF, max_obs=nb_s, smoother=True).assimilate(
+        state64, obs64)
+    s_oracle_s = time.perf_counter() - t0
+    for method, kernel in (("cheb", "nbh_cheb"), ("fused1d", "window1d")):
+        alg = LETKF(loc, INF, max_obs=nb_s, method=method, smoother=True)
+        ens_obs, filtered = alg._apply_obs_operator(state, [obs])
+        _, perts, obs_info = alg._get_obs_space_variables(ens_obs, filtered)
+        degree = alg._auto_cheb_degree(perts, obs_info, state.grid_info())
+        out, counts = counted(alg.assimilate, state, obs)
+        n_chunks = -(-g // alg.chunksize) if method == "cheb" else 1
+        check(counts == {kernel: n_chunks},
+              f"class smoother {method} launches {counts}")
+        _, rel = compare(out.data, oracle_s.data,
+                         f"class smoother {method} vs f64 eigh")
+        notes.append(f"smoother [2, 3, 40, {g}] {method} (nb {nb_s}, auto "
+                     f"degree {degree}, {counts}) {rel!r}")
+    log(15, "LETKF.assimilate against f64 eigh (smoother oracle "
+        f"{s_oracle_s:.1f} s): " + "; ".join(notes) + f" (budget {TOL})")
+
+    # -- 16. times ---------------------------------------------------------
+    kinds["nbh_cheb"]["ms"], kinds["nbh_cheb"]["plain_ms"] = paired_ms(
+        lambda: run_cheb(a12, DEGREE), lambda: run_cheb(a12, DEGREE,
+                                                        plain=True))
+    kinds["nbh_ns"]["ms"], kinds["nbh_ns"]["plain_ms"] = paired_ms(
+        lambda: run_ns(a13, NS_ITERS), lambda: run_ns(a13, NS_ITERS,
+                                                      plain=True))
+    ms_k4_s = median_ms(lambda: run_cheb(a6, 48))
+    state1, obs1 = class_api_inputs(wt[0][None, None], w, 1)
+    obs1 = obs1.replace(observations=wt[1][None])
+    ms_class = median_ms(lambda: letkf.assimilate(state1, obs1), reps=10,
+                         inner=3)
+    ms_cheb = median_ms(lambda: cheb(*wt), reps=10, inner=3)
+    ms_pallas = median_ms(lambda: pallas(*wt), reps=10, inner=3)
+    for name in ("nbh_cheb", "nbh_ns"):
+        t = kinds[name]
+        log(16, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms "
+            f"[{gpu}]")
+    log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms [{gpu}]")
+    log(16, f"per call: LETKF(cheb).assimilate [1, 1, 40, {g}] {ms_class!r} "
+        f"ms; make_letkf_analysis cheb {ms_cheb!r} ms, pallas {ms_pallas!r} "
+        f"ms [{gpu}]")
 
 
 if __name__ == "__main__":

@@ -193,9 +193,22 @@ def test_letkf_weights_dense(rng):
 
 @pytest.mark.parametrize("method", ["newton", "woodbury"])
 def test_unported_solvers_raise(rng, method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.etkf_weights_from_gram(t(np.eye(3)[None]), t(np.ones((1, 3, 1))),
-                                  3, method=method)
+    """The Gram solve takes the methods the JAX package's takes: ``newton``
+    matches it, and ``woodbury``, which exists only over neighborhoods
+    (``letkf_weights_nbh``), raises ValueError as there."""
+    gram, zy = np.eye(3)[None], np.ones((1, 3, 1))
+    if method == "woodbury":
+        with pytest.raises(ValueError):
+            te.etkf_weights_from_gram(t(gram), t(zy), 3, method=method)
+        with pytest.raises(ValueError):
+            je.etkf_weights_from_gram(jnp.asarray(gram), jnp.asarray(zy), 3,
+                                      method=method)
+        return
+    out = te.etkf_weights_from_gram(t(gram), t(zy), 3, method=method)
+    ref = je.etkf_weights_from_gram(jnp.asarray(gram), jnp.asarray(zy), 3,
+                                    method=method)
+    for a, b in zip(out, ref):
+        close(a, b)
 
 
 # -- mixin_local -----------------------------------------------------------

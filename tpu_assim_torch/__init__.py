@@ -7,6 +7,15 @@ is the port of ``tpu_assim.ops.localization``; the Pallas modules
 ``ops/cuda/letkf.py`` and ``models/cuda_forecast.py``). The package imports
 torch and numpy only. Its CUDA kernels live in ``csrc/`` and are built with
 nvcc at their first launch.
+
+The class API: :class:`EnsembleState`, :class:`Observation`, :class:`ETKF`
+and :class:`LETKF`.
 """
 
 __version__ = "0.1.0"
+
+from tpu_assim_torch.interface import ETKF, LETKF
+from tpu_assim_torch.observation import Observation
+from tpu_assim_torch.state import EnsembleState
+
+__all__ = ["ETKF", "EnsembleState", "LETKF", "Observation"]

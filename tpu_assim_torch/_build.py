@@ -3,11 +3,12 @@ Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, for Hopper (``sm_90a``), into ``csrc/build/``. The
-library's file name carries a hash of its source and of the compile flags,
-so an edited source is rebuilt at its next use and an unchanged one is
-loaded as built. Nothing here runs at import: the first call of a kernel
-wrapper builds what it needs, and :func:`build_all` runs one nvcc per
-missing source, all at once.
+library's file name carries a hash of its source, of every header
+``csrc/*.cuh`` and of the compile flags, so an edited source or header is
+rebuilt at its next use and an unchanged one is loaded as built. Nothing
+here runs at import: the first call of a kernel wrapper builds what it
+needs, and :func:`build_all` runs one nvcc per missing source, all at
+once.
 """
 
 import ctypes
@@ -24,7 +25,8 @@ __all__ = ["KERNELS", "SMEM_PER_BLOCK", "build_all", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("letkf_window1d", "rk4_l96", "svd_jacobi")
+KERNELS = ("letkf_window1d", "rk4_l96", "svd_jacobi", "letkf_nbh_cheb",
+           "letkf_nbh_ns")
 # Shared memory one block may use on Hopper (227 KB), which bounds the
 # shapes the kernels take.
 SMEM_PER_BLOCK = 232448
@@ -52,8 +54,10 @@ def _nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -3,16 +3,25 @@ Analysis and cycle steps (PyTorch port of :mod:`tpu_assim.analysis`).
 
 The complete analysis — obs operator, R^{-1/2} normalization, innovation,
 Gaspari-Cohn taper, weight solve and weight application — runs on the
-device of the state tensor. Two LETKF solvers are ported:
+device of the state tensor. The LETKF solvers:
 
 - ``method="eigh"``: exact eigendecomposition, over the dense taper (the
   f64 oracle) or over fixed-size neighborhoods (``max_obs``);
+- ``method="newton"``: coupled Newton-Schulz iterations on the K x K
+  matrices; ``method="woodbury"``: the same on the nb x nb dual matrices of
+  the neighborhoods;
+- ``method="cheb"``: the Chebyshev solve and apply over gathered
+  neighborhoods in one CUDA kernel
+  (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_nbh_analysis_cheb`);
+- ``method="pallas"``: the Woodbury solve by Newton-Schulz iterations and
+  apply over gathered neighborhoods in one CUDA kernel
+  (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_nbh_analysis_fused`; the
+  name is the JAX package's);
 - ``method="fused1d"``: the whole analysis in one CUDA kernel
   (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_window_analysis_fused`).
 
-The other solvers of the JAX package raise ``NotImplementedError`` and name
-their ROADMAP.md item. :func:`make_lienks_step` is the localized IEnKS
-smoother.
+``method="fused2d"`` raises ``NotImplementedError`` and names its
+ROADMAP.md item. :func:`make_lienks_step` is the localized IEnKS smoother.
 """
 
 from typing import Callable, Optional
@@ -26,8 +35,12 @@ from tpu_assim_torch.models.cuda_forecast import (
     supports_fused_rk4,
 )
 from tpu_assim_torch.ops.cuda.letkf import (
+    letkf_nbh_analysis_cheb,
+    letkf_nbh_analysis_fused,
     letkf_window_analysis_fused,
     max_in_support_1d,
+    raise_if_overflow,
+    taper_name,
 )
 from tpu_assim_torch.ops.etkf import (
     etkf_weights,
@@ -36,22 +49,20 @@ from tpu_assim_torch.ops.etkf import (
 )
 from tpu_assim_torch.ops.ienks import ienks_bundle_step, ienks_transform_step
 from tpu_assim_torch.ops.localization import (
-    GaspariCohnInf,
-    neighborhood_select,
-    neighborhood_select_window,
     safe_sqrt,
+    safe_sqrt_keep_nan,
+    select_neighborhoods,
 )
 
 __all__ = ["make_cycle_step", "make_etkf_analysis", "make_letkf_analysis",
            "make_lienks_step"]
 
 _NOT_PORTED = {
-    "newton": "ROADMAP.md Queue 1 item 2 (Newton-Schulz solves)",
-    "woodbury": "ROADMAP.md Queue 1 item 2 (Woodbury solve)",
-    "cheb": "ROADMAP.md Queue 1 item 9 (method='cheb', kernel K4)",
-    "pallas": "ROADMAP.md Queue 1 item 9 (method='pallas', kernel K5)",
-    "fused2d": "ROADMAP.md Queue 1 item 9 (method='fused2d', kernel K6)",
+    "fused2d": "ROADMAP.md Queue 2 K6 (method='fused2d', kernel K6)",
 }
+_METHODS = ("eigh", "newton", "woodbury", "cheb", "pallas", "fused1d")
+# methods that need a localization and max_obs
+_NBH_METHODS = ("woodbury", "cheb", "pallas", "fused1d")
 
 
 def _normalized_obs_space(ens_obs, obs_vals, obs_var):
@@ -73,33 +84,9 @@ def _normalized_obs_space(ens_obs, obs_vals, obs_var):
     return (ens_obs - mean) * rcinv, (obs_vals - mean[0]) * rcinv
 
 
-def _raise_if_overflow(worst: int, max_obs: int) -> None:
-    """Loud failure for the window kernel's exactness condition."""
-    if worst > max_obs:
-        raise ValueError(
-            f"a grid column has {worst} in-support (nonzero-taper) "
-            f"observations but max_obs={max_obs}: the window selection "
-            f"would truncate. Raise max_obs to >= {worst} or pass "
-            "max_obs_strict=False to accept truncation to the nearest "
-            "observations."
-        )
-
-
-def _taper_name(localization) -> str:
-    return "gcinf" if isinstance(localization, GaspariCohnInf) else "gc2"
-
-
 def _with_time(coords):
     """Localization info rows: a time column (zero), then the coords."""
     return torch.cat([torch.zeros_like(coords[:, :1]), coords], dim=1)
-
-
-def _select(localization, grid_info, obs_info, max_obs, selection, strict):
-    """The fixed-size neighborhoods of ``selection`` ("window" or "topk")."""
-    if selection == "window":
-        return neighborhood_select_window(localization, grid_info, obs_info,
-                                          max_obs, strict=strict)
-    return neighborhood_select(localization, grid_info, obs_info, max_obs)
 
 
 def _check_selection(selection: str) -> None:
@@ -126,33 +113,47 @@ def make_letkf_analysis(
     chunksize: Optional[int] = None,
     obs_operator: Optional[Callable] = None,
     method: str = "eigh",
+    newton_iters: int = 25,
     max_obs: Optional[int] = None,
     cheb_degree: int = 16,
     selection: str = "topk",
+    obs_block: Optional[int] = None,
     max_obs_strict: bool = True,
     geometry: Optional[tuple] = None,
 ):
-    """Build a single-cycle LETKF analysis.
+    """Build a single-cycle LETKF analysis (the parameters of
+    :func:`tpu_assim.analysis.make_letkf_analysis`, in its order).
 
     Parameters
     ----------
     localization : Gaspari-Cohn taper object (or None: unlocalized).
     inf_factor : inflation rho.
-    chunksize : grid columns per chunk of the dense taper (memory bound).
+    chunksize : grid columns per chunk (memory bound): of the dense taper
+        and the weights, or of the neighborhoods of ``cheb`` (one kernel
+        launch per chunk).
     obs_operator : optional callable ``[..., grid] -> [..., obs]``; by
         default the observations are point observations at ``obs_idx``.
     method : ``"eigh"`` — exact eigendecomposition, over the dense taper or,
         with ``max_obs``, over each column's ``max_obs`` selected
-        observations; ``"fused1d"`` — the whole analysis in one kernel, for
+        observations; ``"newton"`` — the same weights by coupled
+        Newton-Schulz iterations; ``"woodbury"`` — Newton-Schulz on the
+        neighborhoods' nb x nb dual matrices; ``"cheb"`` — the Chebyshev
+        solve and apply over the neighborhoods in one kernel; ``"pallas"``
+        — the Woodbury solve and apply over the neighborhoods in one
+        kernel; ``"fused1d"`` — the whole analysis in one kernel, for
         sorted 1-D obs coordinates (column 0 of the coordinates) and a
-        single-radius Gaspari-Cohn taper; needs ``max_obs``.
-    max_obs : the neighborhood size of ``eigh`` (None: the dense taper) and
-        the window size of ``fused1d``.
-    cheb_degree : Chebyshev degree of ``fused1d``.
-    selection : how ``eigh`` with ``max_obs`` picks the neighborhoods:
-        ``"topk"`` (largest taper weights) or ``"window"`` (sorted 1-D obs
-        coordinates; see
+        single-radius Gaspari-Cohn taper. ``woodbury``, ``cheb``,
+        ``pallas`` and ``fused1d`` need a localization and ``max_obs``.
+    newton_iters : Newton-Schulz iterations of ``newton``, ``woodbury`` and
+        ``pallas``.
+    max_obs : the neighborhood size (None with ``eigh``/``newton``: the
+        dense taper) and the window size of ``fused1d``.
+    cheb_degree : Chebyshev degree of ``cheb`` and ``fused1d``.
+    selection : how the neighborhoods are picked: ``"topk"`` (largest
+        taper weights) or ``"window"`` (sorted 1-D obs coordinates; see
         :func:`tpu_assim_torch.ops.localization.neighborhood_select_window`).
+    obs_block : accepted for parity with the JAX signature and ignored: the
+        window kernel searches the whole coordinate table.
     max_obs_strict : the window selections NaN-poison columns with more
         in-support observations than ``max_obs``, and ``fused1d`` also
         raises at call (or build) time; False accepts truncation to the
@@ -168,23 +169,24 @@ def make_letkf_analysis(
     analysis_fn(state_data [k, g], obs_vals [o], obs_var, obs_idx [o],
                 grid_coords [g, d], obs_coords [o, d]) -> analysis [k, g]
     """
+    del obs_block
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
-    if method not in ("eigh", "fused1d"):
+    if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
     _check_selection(selection)
+    if method in _NBH_METHODS and (localization is None or max_obs is None):
+        raise ValueError(f"method={method!r} needs a localization and "
+                         "max_obs")
     fused = method == "fused1d"
     if fused:
-        if localization is None or max_obs is None:
-            raise ValueError("method='fused1d' needs a localization and "
-                             "max_obs")
         radius = np.atleast_1d(np.asarray(localization.radius, dtype=float))
         if radius.size != 1:
             raise ValueError("method='fused1d' supports a single "
                              f"localization radius; got {radius}")
         radius = float(radius[0])
-        taper = _taper_name(localization)
+        taper = taper_name(localization)
         epsilon = float(localization.epsilon)
 
     def _host_harden(obs_coords_np, grid_coords_np):
@@ -197,7 +199,7 @@ def make_letkf_analysis(
             raise ValueError("method='fused1d' needs obs coordinates sorted "
                              "ascending along dimension 0")
         if max_obs_strict:
-            _raise_if_overflow(
+            raise_if_overflow(
                 max_in_support_1d(ox, grid_coords_np[:, 0], radius,
                                   taper=taper, epsilon=epsilon),
                 max_obs)
@@ -225,23 +227,65 @@ def make_letkf_analysis(
             )
 
         obs_info = _with_time(obs_coords)
+        grid_info = _with_time(grid_coords)
+
+        def select(g_chunk):
+            return select_neighborhoods(localization, g_chunk, obs_info,
+                                        max_obs, selection, max_obs_strict)
+
+        def neighborhoods(g_chunk):
+            """The chunk's neighborhood indices and sqrt taper weights."""
+            idx, w_nbh = select(g_chunk)
+            return idx, safe_sqrt_keep_nan(w_nbh).to(perts.dtype)
+
+        if method in ("cheb", "pallas"):
+            f32 = torch.float32
+            reg = (k - 1) / inf_factor
+            mean = torch.mean(state_data, dim=0)
+            sp = state_data - mean[None, :]
+
+        if method == "cheb":
+            def cheb_chunk(sl):
+                idx, sw = neighborhoods(grid_info[sl])             # [c, nb]
+                zh = perts[:, idx].permute(2, 0, 1) * sw.T[:, None, :]
+                yh = innov[idx].T * sw.T                           # [nb, c]
+                return letkf_nbh_analysis_cheb(
+                    *(t.to(f32).contiguous() for t in (
+                        zh, yh, sp[:, sl], mean[sl])),
+                    reg, k, degree=cheb_degree)
+
+            g = grid_info.shape[0]
+            step = g if chunksize is None else max(int(chunksize), 1)
+            return torch.cat([cheb_chunk(slice(i, i + step))
+                              for i in range(0, g, step)], dim=1)
+
+        if method == "pallas":
+            idx, sw = neighborhoods(grid_info)
+            zh = perts[:, idx].permute(1, 2, 0) * sw[:, :, None]   # [g, nb, k]
+            out = letkf_nbh_analysis_fused(
+                *(t.to(f32).contiguous() for t in (
+                    zh, innov[idx] * sw, sp.T, mean)),
+                reg, k, num_iters=newton_iters)
+            return out.T.contiguous()
 
         def chunk_fn(g_chunk):
             if localization is not None and max_obs is not None:
-                idx, w_nbh = _select(localization, g_chunk, obs_info,
-                                     max_obs, selection, max_obs_strict)
+                idx, w_nbh = select(g_chunk)
                 return letkf_weights_nbh(perts, innov, idx,
-                                         w_nbh.to(perts.dtype), inf_factor)
+                                         w_nbh.to(perts.dtype), inf_factor,
+                                         method=method,
+                                         newton_iters=newton_iters)
             if localization is None:
                 w_loc = torch.ones(g_chunk.shape[0], obs_info.shape[0],
                                    dtype=perts.dtype, device=perts.device)
             else:
                 w_loc = localization.taper_weights(g_chunk, obs_info).to(
                     perts.dtype)
-            return letkf_weights_dense(perts, innov, w_loc, inf_factor)
+            return letkf_weights_dense(perts, innov, w_loc, inf_factor,
+                                       method=method,
+                                       newton_iters=newton_iters)
 
-        weights = map_grid_chunked(chunk_fn, _with_time(grid_coords),
-                                   chunksize)                      # [g,k,k]
+        weights = map_grid_chunked(chunk_fn, grid_info, chunksize)  # [g,k,k]
         mean = torch.mean(state_data, dim=0, keepdim=True)
         return mean + torch.einsum("kg,gkm->mg", state_data - mean, weights)
 
@@ -385,8 +429,9 @@ def make_lienks_step(
         grid_info = _with_time(grid_coords)
         obs_info = _with_time(obs_coords)
         if localization is not None and max_obs is not None:
-            idx, w_nbh = _select(localization, grid_info, obs_info, max_obs,
-                                 selection, max_obs_strict)
+            idx, w_nbh = select_neighborhoods(localization, grid_info,
+                                              obs_info, max_obs, selection,
+                                              max_obs_strict)
             sqrt_w = safe_sqrt(w_nbh).to(dtype)               # [g, nb]
         else:
             idx = None

@@ -12,11 +12,13 @@ import numpy as np
 import torch
 
 from tpu_assim_torch.models import Lorenz96, RK4Integrator
+from tpu_assim_torch.observation import Observation
 from tpu_assim_torch.ops.localization import (
     GaspariCohn,
     GaspariCohnInf,
     abs_distance,
 )
+from tpu_assim_torch.state import EnsembleState
 
 __all__ = ["arrays_to_torch", "coord1_distance", "from_tpu_assim"]
 
@@ -31,6 +33,8 @@ def arrays_to_torch(arrays, device, dtype=None):
             out.append(None)
             continue
         a = np.asarray(a)
+        if not a.flags.writeable:  # e.g. a view of a JAX array
+            a = a.copy()
         t = torch.as_tensor(a, device=device)
         if dtype is not None and a.dtype.kind == "f":
             t = t.to(dtype)
@@ -44,14 +48,29 @@ def coord1_distance(grid_coord, obs_coords):
     return abs_distance(grid_coord[1:2], obs_coords[:, 1:2])
 
 
-def from_tpu_assim(obj, dist_func=None):
+def from_tpu_assim(obj, dist_func=None, operator=None, device="cpu"):
     """The port of a ``tpu_assim`` ``Lorenz96``, ``RK4Integrator``,
-    ``GaspariCohn`` or ``GaspariCohnInf``, built from its attributes.
+    ``GaspariCohn``, ``GaspariCohnInf``, ``EnsembleState`` or
+    ``Observation``, built from its attributes (state and observation
+    arrays as tensors on ``device``).
 
-    A JAX distance function cannot be carried across: localizations get
-    ``dist_func``, by default :func:`coord1_distance`.
+    A JAX callable cannot be carried across: localizations get
+    ``dist_func``, by default :func:`coord1_distance`, and observations get
+    ``operator`` (default None).
     """
     kind = type(obj).__name__
+    if kind == "EnsembleState":
+        data, times, coords = arrays_to_torch(
+            (obj.data, obj.times, obj.grid_coords), device)
+        return EnsembleState(data, times=times, grid_coords=coords,
+                             var_names=obj.var_names,
+                             ens_members=obj.ens_members)
+    if kind == "Observation":
+        values, cov, coords, times = arrays_to_torch(
+            (obj.observations, obj.covariance, obj.obs_coords, obj.times),
+            device)
+        return Observation(values, cov, obs_coords=coords, times=times,
+                           operator=operator, correlated=obj.correlated)
     if kind == "Lorenz96":
         forcing = np.asarray(obj.forcing)
         return Lorenz96(float(forcing) if forcing.ndim == 0

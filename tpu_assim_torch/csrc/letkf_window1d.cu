@@ -6,7 +6,9 @@
 // letkf_window_analysis_fused (kernels _letkf_window_dma_kernel and
 // _letkf_window_kernel, shared core _window1d_core and _cheb_solve_apply).
 // The plain PyTorch twin is tpu_assim_torch/ops/cuda/letkf.py:
-// window_analysis_plain.
+// window_analysis_plain. The solve and weight application (steps 4-7
+// below) are cheb_core.cuh, which the neighborhood kernel
+// letkf_nbh_cheb.cu shares.
 //
 // What bounds it on an H100: latency and instruction issue, not bytes. At
 // the benchmark shape (ens 40, grid 10^4, obs 10^3, window 12, degree 12)
@@ -38,10 +40,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cheb_core.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;  // grid columns per block
-constexpr unsigned kFull = 0xffffffffu;
+using cheb::kFull;
 
 struct Params {
   const float* perts;    // [k, o] normalized obs-space perturbations
@@ -127,16 +131,6 @@ __device__ int count_below(const float* x, int n, float key, bool inclusive) {
   return lo;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
 // Unsorted coordinates (or NaN) poison the whole output, as the TPU
 // wrapper's sortedness guard does.
 __global__ void check_sorted_kernel(const float* __restrict__ x, int n,
@@ -153,23 +147,13 @@ window1d_kernel(const Params p) {
   const int col = blockIdx.x * kWarps + warp;
   if (col >= p.g) return;  // whole warps leave; nothing below syncs blocks
 
-  const int k = p.k, o = p.o, nb = p.nb, ns = p.ns, dp1 = p.degree + 1;
-  const int n_ops = 1 + ns;          // Clenshaw operands: yh, then u_i
-  const int n_ent = n_ops * nb;
+  const int k = p.k, o = p.o, nb = p.nb, ns = p.ns;
 
-  // this warp's slice of shared memory
-  float* zh = smem + static_cast<size_t>(warp) * p.per_warp;  // [nb][k]
-  float* s_mat = zh + nb * k;        // [nb][nb]
-  float* spc = s_mat + nb * nb;      // [ns][k] this column's perturbations
-  float* w_all = spc + ns * k;       // [n_ops][nb] yh, u_1..u_ns
-  float* b0 = w_all + n_ent;         // three Clenshaw buffers
-  float* b1 = b0 + n_ent;
-  float* b2 = b1 + n_ent;
-  float* c1 = b2 + n_ent;            // [d + 1] coefficients of 1/x
-  float* c2 = c1 + dp1;              // [d + 1] of 1/(sqrt(x)(1 + sqrt(x)))
-  float* f1x = c2 + dp1;             // [d + 1] node values
-  float* f2x = f1x + dp1;
-  float* sw = f2x + dp1;             // [nb] sqrt taper weights
+  // this warp's slice of shared memory: the solve's workspace, then the
+  // sqrt taper weights [nb]
+  float* base = smem + static_cast<size_t>(warp) * p.per_warp;
+  const cheb::Workspace ws = cheb::carve(base, k, nb, ns, p.degree);
+  float* sw = base + cheb::workspace_floats(k, nb, ns, p.degree);
 
   const float gx = p.grid_x[col];
 
@@ -199,7 +183,7 @@ window1d_kernel(const Params p) {
     }
     const float s = sqrtf(w);
     sw[j] = s;
-    w_all[j] = y * s + poison_y;
+    ws.w_all[j] = y * s + poison_y;
   }
   __syncwarp();
   for (int f = lane; f < k * nb; f += 32) {
@@ -207,110 +191,20 @@ window1d_kernel(const Params p) {
     const int idx = start + j;
     const float v = (idx >= 0 && idx < o)
                         ? p.perts[static_cast<size_t>(kk) * o + idx] : 0.0f;
-    zh[j * k + kk] = v * sw[j];
+    ws.zh[j * k + kk] = v * sw[j];
   }
   for (int f = lane; f < ns * k; f += 32)
-    spc[f] = p.sp[static_cast<size_t>(f) * p.g + col];
+    ws.spc[f] = p.sp[static_cast<size_t>(f) * p.g + col];
+  for (int i = lane; i < ns; i += 32)
+    ws.meanc[i] = p.mean[static_cast<size_t>(i) * p.g + col] + poison_m;
   __syncwarp();
 
-  // 4. Gram matrix S = zh zh^T and u_i = zh sp_i
-  for (int e = lane; e < nb * nb; e += 32) {
-    const int n = e / nb, m = e - n * nb;
-    float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += zh[n * k + kk] * zh[m * k + kk];
-    s_mat[e] = acc;
-  }
-  for (int e = lane; e < ns * nb; e += 32) {
-    const int i = e / nb, n = e - i * nb;
-    float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += zh[n * k + kk] * spc[i * k + kk];
-    w_all[nb + e] = acc;
-  }
-  for (int e = lane; e < n_ent; e += 32) {
-    b1[e] = 0.0f;
-    b2[e] = 0.0f;
-  }
-  __syncwarp();
-
-  // spectral upper bound of X = I + S/reg: 1 + min(||S||_inf, tr S)/reg,
-  // floored at 1.05
-  float row_max = 0.0f, diag = 0.0f;
-  for (int n = lane; n < nb; n += 32) {
-    float r = 0.0f;
-    for (int m = 0; m < nb; ++m) r += fabsf(s_mat[n * nb + m]);
-    row_max = fmaxf(row_max, r);
-    diag += s_mat[n * nb + n];
-  }
-  const float inf_norm = warp_max(row_max);
-  const float trace = warp_sum(diag);
-  const float lam_ub = fmaxf(1.0f + fminf(inf_norm, trace) / p.reg, 1.05f);
-
-  // 5. Chebyshev coefficients on [1, lam_ub] from the mapped nodes
-  const float half_w = 0.5f * (lam_ub - 1.0f);
-  for (int j = lane; j < dp1; j += 32) {
-    const float x = (1.0f + half_w) + half_w * p.nodes[j];
-    const float sq = sqrtf(x);
-    f1x[j] = 1.0f / x;
-    f2x[j] = 1.0f / (sq * (1.0f + sq));
-  }
-  __syncwarp();
-  for (int m = lane; m < dp1; m += 32) {
-    float a1 = 0.0f, a2 = 0.0f;
-    for (int j = 0; j < dp1; ++j) {
-      const float d = p.dct[m * dp1 + j];
-      a1 += d * f1x[j];
-      a2 += d * f2x[j];
-    }
-    c1[m] = a1;
-    c2[m] = a2;
-  }
-  __syncwarp();
-
-  // 6. one joint Clenshaw recurrence over [yh; u_1..u_ns] with the
-  // normalized operator Xt v = (2/(lam_ub - 1)/reg) S v - v
-  const float a2_sc = 2.0f / (lam_ub - 1.0f) / p.reg;
-  for (int mi = p.degree; mi >= 1; --mi) {
-    for (int e = lane; e < n_ent; e += 32) {
-      const int op = e / nb, n = e - op * nb;
-      const float* v = b1 + op * nb;
-      float sv = 0.0f;
-      for (int m = 0; m < nb; ++m) sv += s_mat[n * nb + m] * v[m];
-      const float c = (op == 0) ? c1[mi] : c2[mi];
-      b0[e] = c * w_all[e] + 2.0f * (a2_sc * sv - b1[e]) - b2[e];
-    }
-    __syncwarp();
-    float* t = b2;
-    b2 = b1;
-    b1 = b0;
-    b0 = t;
-  }
-  float* res = b0;  // q = X^{-1} yh in row 0, v_i = f2(X) u_i in rows 1..
-  for (int e = lane; e < n_ent; e += 32) {
-    const int op = e / nb, n = e - op * nb;
-    const float* v = b1 + op * nb;
-    float sv = 0.0f;
-    for (int m = 0; m < nb; ++m) sv += s_mat[n * nb + m] * v[m];
-    const float c = (op == 0) ? c1[0] : c2[0];
-    res[e] = c * w_all[e] + (a2_sc * sv - b1[e]) - b2[e];
-  }
-  __syncwarp();
-
-  // 7. mean + <u_i, q>/reg + alpha sp_i - (alpha/reg) zh^T v_i
-  const float alpha = sqrtf((static_cast<float>(k) - 1.0f) / p.reg);
-  const float alpha_reg = alpha / p.reg;
-  for (int f = lane; f < ns * k; f += 32) {
-    const int i = f / k, kk = f - i * k;
-    const float* u = w_all + nb * (1 + i);
-    const float* v = res + nb * (1 + i);
-    float uq = 0.0f, zv = 0.0f;
-    for (int n = 0; n < nb; ++n) {
-      uq += u[n] * res[n];
-      zv += zh[n * k + kk] * v[n];
-    }
-    const float m = p.mean[static_cast<size_t>(i) * p.g + col] + poison_m;
-    p.out[static_cast<size_t>(f) * p.g + col] =
-        m + uq / p.reg + alpha * spc[f] - alpha_reg * zv;
-  }
+  // 4-7. Gram matrix, spectral bound, Chebyshev coefficients, the joint
+  // Clenshaw recurrence and mean + <u_i, q>/reg + alpha sp_i - (alpha/reg)
+  // zh^T v_i, into ws.spc
+  cheb::solve_apply(ws, p.nodes, p.dct, k, nb, ns, p.degree, p.reg, lane);
+  for (int f = lane; f < ns * k; f += 32)
+    p.out[static_cast<size_t>(f) * p.g + col] = ws.spc[f];
 }
 
 }  // namespace
@@ -319,10 +213,7 @@ extern "C" {
 
 // Floats of shared memory one column's warp uses.
 int window1d_floats_per_warp(int k, int nb, int ns, int degree) {
-  const int n_ent = (1 + ns) * nb;
-  const int floats = nb * k + nb * nb + ns * k + 4 * n_ent
-                     + 4 * (degree + 1) + nb;
-  return (floats + 3) & ~3;
+  return (cheb::workspace_floats(k, nb, ns, degree) + nb + 3) & ~3;
 }
 
 size_t window1d_smem_bytes(int k, int nb, int ns, int degree) {

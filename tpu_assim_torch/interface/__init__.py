@@ -1,2 +1,9 @@
-"""Interface helpers (port of :mod:`tpu_assim.interface`; the class API is
-not ported yet)."""
+"""Algorithm interface layer (port of :mod:`tpu_assim.interface`; the
+kernelized and smoother classes are not ported yet)."""
+
+from tpu_assim_torch.interface.base import BaseAssimilation
+from tpu_assim_torch.interface.etkf import ETKF
+from tpu_assim_torch.interface.filter import FilterAssimilation
+from tpu_assim_torch.interface.letkf import LETKF
+
+__all__ = ["BaseAssimilation", "ETKF", "FilterAssimilation", "LETKF"]

@@ -1,19 +1,29 @@
 """
-The 1-D window LETKF analysis as one hand-written CUDA kernel (the port of
-:func:`tpu_assim.ops.pallas.letkf.letkf_window_analysis_fused`), with its
-plain PyTorch twin and the numpy host helpers it shares with the JAX
-package.
+The LETKF analysis kernels (the port of :mod:`tpu_assim.ops.pallas.letkf`),
+each hand-written in CUDA with its plain PyTorch twin, and the numpy host
+helpers they share with the JAX package:
 
-Per grid column: the window of ``nb`` observations around the column's rank
-among the sorted observation coordinates, clamped onto its in-support
-range; the Gaspari-Cohn taper with sqrt-weight scaling; then the
+- K1, :func:`letkf_window_analysis_fused` (``csrc/letkf_window1d.cu``): the
+  whole 1-D window analysis;
+- K4, :func:`letkf_nbh_analysis_cheb` (``csrc/letkf_nbh_cheb.cu``): the
+  Chebyshev/Clenshaw solve and apply over neighborhoods gathered as
+  ``[nb, k, g]``, shared by ``ns`` stacked state slices;
+- K5, :func:`letkf_nbh_analysis_fused` (``csrc/letkf_nbh_ns.cu``): the
+  Woodbury solve by Newton-Schulz iterations and apply over neighborhoods
+  gathered as ``[g, nb, k]``.
+
+K1 does, per grid column: the window of ``nb`` observations around the
+column's rank among the sorted observation coordinates, clamped onto its
+in-support range; the Gaspari-Cohn taper with sqrt-weight scaling; then the
 Chebyshev/Clenshaw evaluation of ``q = X^{-1} yh`` and ``v = f(X) u`` with
 ``X = I + Zh Zh^T / reg`` and ``f(x) = 1/(sqrt(x)(1 + sqrt(x)))``, applied as
-``mean + <u, q>/reg + alpha sp - (alpha/reg) Zh^T v``.
+``mean + <u, q>/reg + alpha sp - (alpha/reg) Zh^T v``. K4 does the last
+step alone, on neighborhoods gathered outside it.
 
-:func:`letkf_window_analysis_fused` runs :func:`window_analysis_plain` for
-CPU tensors and launches ``csrc/letkf_window1d.cu`` for CUDA tensors. The
-kernel's library is built at its first launch (:mod:`tpu_assim_torch._build`).
+Each wrapper runs its plain version (:func:`window_analysis_plain`,
+:func:`nbh_cheb_plain`, :func:`nbh_fused_plain`) for CPU tensors and
+launches its kernel for CUDA tensors. A kernel's library is built at its
+first launch (:mod:`tpu_assim_torch._build`).
 """
 
 import ctypes
@@ -33,14 +43,22 @@ from tpu_assim_torch.ops.localization import (
 __all__ = [
     "LAUNCHES",
     "cheb_degree_for",
+    "letkf_nbh_analysis_cheb",
+    "letkf_nbh_analysis_fused",
     "letkf_window_analysis_fused",
     "max_in_support_1d",
+    "nbh_cheb_plain",
+    "nbh_fused_plain",
+    "raise_if_overflow",
     "required_obs_block",
+    "taper_name",
     "window_analysis_plain",
 ]
 
-# Launches of the CUDA kernel, counted by the wrapper.
-LAUNCHES = {"window1d": 0}
+# Launches of each CUDA kernel, counted by its wrapper.
+LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0}
+
+_AUTOGRAD_ITEM = "ROADMAP.md Queue 1, the autograd item"
 
 _TAPERS = ("gc2", "gcinf")
 
@@ -102,6 +120,25 @@ def max_in_support_1d(obs_x, grid_x, radius: float, taper: str = "gc2",
     lo = np.searchsorted(obs_x, grid_x - s, side="right")
     hi = np.searchsorted(obs_x, grid_x + s, side="left")
     return int((hi - lo).max()) if grid_x.size else 0
+
+
+def raise_if_overflow(worst: int, max_obs: int) -> None:
+    """Loud failure for the window selection's exactness condition:
+    ``worst`` in-support observations in a column (``max_in_support_1d``)
+    against ``max_obs`` slots."""
+    if worst > max_obs:
+        raise ValueError(
+            f"a grid column has {worst} in-support (nonzero-taper) "
+            f"observations but max_obs={max_obs}: the window selection "
+            f"would truncate. Raise max_obs to >= {worst} or pass "
+            "max_obs_strict=False to accept truncation to the nearest "
+            "observations."
+        )
+
+
+def taper_name(localization) -> str:
+    """The window kernel's name of a Gaspari-Cohn localization's taper."""
+    return "gcinf" if isinstance(localization, GaspariCohnInf) else "gc2"
 
 
 def _cheb_nodes_dct(degree: int):
@@ -262,26 +299,44 @@ def _cheb_tables(degree: int, device: torch.device):
             torch.from_numpy(dct).to(device))
 
 
-def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
-                     degree, epsilon, taper, strict):
-    if any(t.requires_grad for t in (perts, innov, obs_x, grid_x, sp, mean)):
+def _check_f32_one_device(name, tensors):
+    """f32 tensors on one CPU or CUDA device; returns the device."""
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes f32 tensors; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {device}")
+    return device
+
+
+def _check_launchable(name, tensors, smem):
+    """The checks of every kernel wrapper before a CUDA launch: no
+    gradients, contiguous inputs, and ``smem`` bytes of shared memory (the
+    smallest block the launch may take) within a Hopper block's."""
+    if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "gradients through the CUDA window kernel are not ported yet "
-            "(ROADMAP.md: the autograd.Function of K1)")
-    for t in (perts, innov, obs_x, grid_x, sp, mean):
-        if not t.is_contiguous():
-            raise ValueError("the CUDA window kernel needs contiguous inputs")
+            f"gradients through the CUDA kernel {name} are not ported yet "
+            f"({_AUTOGRAD_ITEM})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the CUDA kernel {name} needs contiguous inputs")
     from tpu_assim_torch._build import SMEM_PER_BLOCK
 
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name}: these shapes need {smem} bytes of shared memory per "
+            f"block; a Hopper block has {SMEM_PER_BLOCK}")
+
+
+def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
+                     degree, epsilon, taper, strict):
     lib = _window1d_lib()
     k, o = perts.shape
     ns, _, g = sp.shape
-    smem = lib.window1d_smem_bytes(k, nb, ns, degree)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"ens_size={k}, nb={nb}, ns={ns}, degree={degree} need {smem} "
-            f"bytes of shared memory per block; Hopper has "
-            f"{SMEM_PER_BLOCK}")
+    _check_launchable("window1d", (perts, innov, obs_x, grid_x, sp, mean),
+                      lib.window1d_smem_bytes(k, nb, ns, degree))
     device = perts.device
     nodes, dct = _cheb_tables(degree, device)
     out = torch.empty_like(sp)
@@ -350,13 +405,8 @@ def letkf_window_analysis_fused(
     [ns, k, g]).
     """
     del tile, obs_block
-    tensors = (perts, innov, obs_x, grid_x, sp, mean)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("letkf_window_analysis_fused takes f32 tensors; got "
-                        + ", ".join(str(t.dtype) for t in tensors))
-    device = perts.device
-    if any(t.device != device for t in tensors):
-        raise ValueError("all inputs must be on one device")
+    device = _check_f32_one_device("letkf_window_analysis_fused",
+                                   (perts, innov, obs_x, grid_x, sp, mean))
     if taper not in _TAPERS:
         raise ValueError(f"unknown taper {taper!r}; use 'gc2' or 'gcinf'")
     multi = sp.ndim == 3
@@ -379,9 +429,234 @@ def letkf_window_analysis_fused(
             perts, innov, obs_x, grid_x, sp3, mean2, float(reg), radius,
             ens_size=ens_size, nb=nb, degree=degree, epsilon=epsilon,
             taper=taper, strict=strict)
-    elif device.type == "cuda":
+    else:
         out = _launch_window1d(perts, innov, obs_x, grid_x, sp3, mean2, reg,
                                radius, nb, degree, epsilon, taper, strict)
-    else:
-        raise ValueError(f"no window kernel for device {device}")
     return out if multi else out[0]
+
+
+# -- K4: the Chebyshev/Clenshaw solve over gathered neighborhoods -------------
+
+def nbh_cheb_plain(zh, yh, sp, mean, reg, ens_size, degree):
+    """Plain PyTorch version of K4, in the dtype of its inputs.
+
+    zh [nb, k, g] sqrt-taper-scaled neighborhood perturbations; yh [nb, g]
+    scaled innovations; sp [ns, k, g] state perturbations; mean [ns, g];
+    ``reg`` a number -> analysis [ns, k, g].
+    """
+    dtype, device = zh.dtype, zh.device
+    nodes, dct = (torch.from_numpy(a).to(dtype=dtype, device=device)
+                  for a in _cheb_nodes_dct(degree))
+    return _cheb_solve_apply(nodes, dct, zh, yh, sp, mean[:, None, :],
+                             torch.as_tensor(reg, dtype=dtype, device=device),
+                             ens_size, degree)
+
+
+@functools.lru_cache(maxsize=None)
+def _nbh_cheb_lib():
+    from tpu_assim_torch._build import load_library
+
+    lib = load_library("letkf_nbh_cheb")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nbh_cheb_launch.argtypes = (
+        [ptr] * 7 + [i32] * 5 + [ctypes.c_float, i32, ptr])
+    lib.nbh_cheb_launch.restype = i32
+    lib.nbh_cheb_smem_bytes_per_col.argtypes = [i32, i32, i32, i32]
+    lib.nbh_cheb_smem_bytes_per_col.restype = ctypes.c_size_t
+    lib.nbh_cheb_error_string.argtypes = [i32]
+    lib.nbh_cheb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_nbh_cheb(zh, yh, sp, mean, reg, degree):
+    lib = _nbh_cheb_lib()
+    nb, k, g = zh.shape
+    ns = sp.shape[0]
+    _check_launchable("nbh_cheb", (zh, yh, sp, mean),
+                      lib.nbh_cheb_smem_bytes_per_col(k, nb, ns, degree))
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    device = zh.device
+    nodes, dct = _cheb_tables(degree, device)
+    out = torch.empty_like(sp)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nbh_cheb_launch(
+            zh.data_ptr(), yh.data_ptr(), sp.data_ptr(), mean.data_ptr(),
+            nodes.data_ptr(), dct.data_ptr(), out.data_ptr(), k, g, ns, nb,
+            degree, float(reg), SMEM_PER_BLOCK, stream)
+    if err != 0:
+        raise RuntimeError("nbh_cheb kernel launch failed: "
+                           + lib.nbh_cheb_error_string(err).decode())
+    LAUNCHES["nbh_cheb"] += 1
+    return out
+
+
+def letkf_nbh_analysis_cheb(
+    zh: torch.Tensor,
+    yh: torch.Tensor,
+    sp: torch.Tensor,
+    mean: torch.Tensor,
+    reg,
+    ens_size: int,
+    degree: int = 16,
+    tile: int = 128,
+) -> torch.Tensor:
+    """The localized ETKF analysis over gathered neighborhoods, Chebyshev
+    form: :func:`nbh_cheb_plain` for CPU tensors, kernel K4 for CUDA
+    tensors.
+
+    Parameters
+    ----------
+    zh : [nb, k, g] sqrt(taper-weight)-scaled neighborhood perturbations.
+    yh : [nb, g] scaled innovations.
+    sp : [k, g] state perturbations, or [ns, k, g] for ns stacked state
+        slices sharing one obs-space solve per column; mean [g] (or
+        [ns, g]).
+    reg : number (or scalar tensor) (K-1)/rho.
+    degree : Chebyshev degree.
+    tile : accepted for parity with the JAX signature and ignored: the
+        kernel runs one warp per column.
+
+    Every tensor is f32 on one device. Returns the analysis [k, g] (or
+    [ns, k, g]).
+    """
+    del tile
+    device = _check_f32_one_device("letkf_nbh_analysis_cheb",
+                                   (zh, yh, sp, mean))
+    multi = sp.ndim == 3
+    sp3 = sp if multi else sp[None]
+    mean2 = mean if multi else mean[None]
+    nb, k, g = zh.shape
+    ns = sp3.shape[0]
+    if (k != ens_size or nb < 1 or degree < 1 or yh.shape != (nb, g)
+            or sp3.shape != (ns, k, g) or mean2.shape != (ns, g)):
+        raise ValueError(
+            f"shapes do not fit: zh {tuple(zh.shape)}, yh {tuple(yh.shape)}, "
+            f"sp {tuple(sp.shape)}, mean {tuple(mean.shape)}, ens_size "
+            f"{ens_size}, degree {degree}")
+    if device.type == "cpu":
+        out = nbh_cheb_plain(zh, yh, sp3, mean2, float(reg), ens_size, degree)
+    else:
+        out = _launch_nbh_cheb(zh, yh, sp3, mean2, reg, degree)
+    return out if multi else out[0]
+
+
+# -- K5: the Woodbury solve by Newton-Schulz iterations -----------------------
+
+def nbh_fused_plain(zh, yh, sp, mean, reg, ens_size, num_iters):
+    """Plain PyTorch version of K5, in the dtype of its inputs: the steps of
+    the TPU kernel ``_letkf_kernel``, in its order.
+
+    zh [g, nb, k]; yh [g, nb]; sp [g, k]; mean [g]; ``reg`` a number ->
+    analysis [g, k].
+    """
+    dtype, device = zh.dtype, zh.device
+    nb = zh.shape[1]
+    reg = torch.as_tensor(reg, dtype=dtype, device=device)
+    eye = torch.eye(nb, dtype=dtype, device=device)
+    x = eye + zh @ zh.transpose(1, 2) / reg                     # [g, nb, nb]
+    # spectrum of X in [1, lam_max]: scale by 2/(1 + lam_max)
+    trace = torch.diagonal(x, dim1=1, dim2=2).sum(-1)[:, None, None]
+    inf_norm = torch.amax(torch.abs(x).sum(-1), dim=-1)[:, None, None]
+    norm = 0.5 * (torch.minimum(trace, inf_norm) + 1.0)
+    y, z = x / norm, eye.expand(x.shape)
+    for _ in range(num_iters):
+        t = 0.5 * (3.0 * eye - z @ y)
+        y, z = y @ t, t @ z
+    sqrt_norm = torch.sqrt(norm)
+    x_sqrt, x_inv_sqrt = y * sqrt_norm, z / sqrt_norm
+    x_inv = x_inv_sqrt @ x_inv_sqrt
+    # N = (X^{1/2} + I)^{-1} X^{-1/2}, the inverse by Newton-Schulz
+    c = x_sqrt + eye
+    c_lam_max = torch.amax(torch.abs(c).sum(-1), dim=-1)[:, None, None]
+    v = (2.0 / (2.0 + c_lam_max)) * eye
+    for _ in range(num_iters):
+        v = v + v @ (eye - c @ v)
+    n_mat = v @ x_inv_sqrt
+    alpha = torch.sqrt((ens_size - 1.0) / reg)
+    u = (zh @ sp[:, :, None])[..., 0]                           # [g, nb]
+    q = (x_inv @ yh[:, :, None])[..., 0]
+    mean_upd = torch.sum(q * u, dim=-1, keepdim=True) / reg
+    zv = (zh.transpose(1, 2) @ (n_mat @ u[:, :, None]))[..., 0]  # [g, k]
+    return mean[:, None] + mean_upd + (alpha * sp - (alpha / reg) * zv)
+
+
+@functools.lru_cache(maxsize=None)
+def _nbh_ns_lib():
+    from tpu_assim_torch._build import load_library
+
+    lib = load_library("letkf_nbh_ns")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nbh_ns_launch.argtypes = (
+        [ptr] * 5 + [i32] * 4 + [ctypes.c_float, i32, ptr])
+    lib.nbh_ns_launch.restype = i32
+    lib.nbh_ns_smem_bytes_per_col.argtypes = [i32, i32]
+    lib.nbh_ns_smem_bytes_per_col.restype = ctypes.c_size_t
+    lib.nbh_ns_error_string.argtypes = [i32]
+    lib.nbh_ns_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters):
+    lib = _nbh_ns_lib()
+    g, nb, k = zh.shape
+    _check_launchable("nbh_ns", (zh, yh, sp, mean),
+                      lib.nbh_ns_smem_bytes_per_col(k, nb))
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    out = torch.empty_like(sp)
+    with torch.cuda.device(zh.device):
+        stream = torch.cuda.current_stream(zh.device).cuda_stream
+        err = lib.nbh_ns_launch(
+            zh.data_ptr(), yh.data_ptr(), sp.data_ptr(), mean.data_ptr(),
+            out.data_ptr(), k, g, nb, num_iters, float(reg), SMEM_PER_BLOCK,
+            stream)
+    if err != 0:
+        raise RuntimeError("nbh_ns kernel launch failed: "
+                           + lib.nbh_ns_error_string(err).decode())
+    LAUNCHES["nbh_ns"] += 1
+    return out
+
+
+def letkf_nbh_analysis_fused(
+    zh: torch.Tensor,
+    yh: torch.Tensor,
+    sp: torch.Tensor,
+    mean: torch.Tensor,
+    reg,
+    ens_size: int,
+    num_iters: int = 10,
+    tile: int = 128,
+) -> torch.Tensor:
+    """The localized ETKF analysis over gathered neighborhoods, Woodbury
+    form by Newton-Schulz iterations: :func:`nbh_fused_plain` for CPU
+    tensors, kernel K5 for CUDA tensors.
+
+    Parameters
+    ----------
+    zh : [g, nb, k] sqrt(taper-weight)-scaled neighborhood perturbations.
+    yh : [g, nb] scaled innovations.
+    sp : [g, k] state perturbations; mean : [g] state mean.
+    reg : number (or scalar tensor) (K-1)/rho.
+    num_iters : Newton-Schulz iterations, for the square roots and for the
+        inverse each.
+    tile : accepted for parity with the JAX signature and ignored: the
+        kernel runs one warp per column.
+
+    Every tensor is f32 on one device. Returns the analysis [g, k].
+    """
+    del tile
+    device = _check_f32_one_device("letkf_nbh_analysis_fused",
+                                   (zh, yh, sp, mean))
+    g, nb, k = zh.shape
+    if (k != ens_size or nb < 1 or num_iters < 0 or yh.shape != (g, nb)
+            or sp.shape != (g, k) or mean.shape != (g,)):
+        raise ValueError(
+            f"shapes do not fit: zh {tuple(zh.shape)}, yh {tuple(yh.shape)}, "
+            f"sp {tuple(sp.shape)}, mean {tuple(mean.shape)}, ens_size "
+            f"{ens_size}")
+    if device.type == "cpu":
+        return nbh_fused_plain(zh, yh, sp, mean, float(reg), ens_size,
+                               num_iters)
+    return _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters)

@@ -7,6 +7,10 @@ device to the one-sided Jacobi kernel
 (:mod:`tpu_assim_torch.ops.cuda.svd`), under the JAX package's gate; all
 else goes to :func:`torch.linalg.svd` / :func:`torch.linalg.eigh`.
 
+The Newton-Schulz helpers (:func:`inv_sqrt_psd_newton`,
+:func:`sqrt_and_inv_sqrt_psd_newton`, :func:`inv_spd_newton`) are
+matmul-only iterations on SPD batches.
+
 Forward only: the Daleckii-Krein derivative of
 :func:`inv_and_inv_sqrt_psd_eigh` and the SVD pullback are not ported yet.
 """
@@ -21,11 +25,14 @@ __all__ = [
     "eigh_psd",
     "evd",
     "inv_and_inv_sqrt_psd_eigh",
+    "inv_spd_newton",
+    "inv_sqrt_psd_newton",
     "jacobi_dispatch_enabled",
     "matrix_product",
     "rev_evd",
     "rev_svd",
     "set_jacobi_dispatch",
+    "sqrt_and_inv_sqrt_psd_newton",
     "svd",
 ]
 
@@ -153,3 +160,60 @@ def inv_and_inv_sqrt_psd_eigh(g_mat: torch.Tensor, reg):
     evals, evects = eigh_psd(g_mat)
     h = torch.clamp(evals, min=0.0) + reg
     return rev_evd(1.0 / h, evects), rev_evd(1.0 / torch.sqrt(h), evects)
+
+
+def _spectral_bound(a: torch.Tensor) -> torch.Tensor:
+    """``min(max row-sum |a|, trace a)`` ``[..., 1, 1]``: an upper bound of
+    the spectrum of an SPD batch."""
+    inf_norm = torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1)
+    trace = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)
+    return torch.minimum(inf_norm, trace)[..., None, None]
+
+
+def _coupled_newton_schulz(a: torch.Tensor, num_iters: int,
+                           lam_min: Optional[float]):
+    """The coupled iteration ``T = (3I - Z Y)/2``, ``Y <- Y T``,
+    ``Z <- T Z`` from ``Y = a/norm``, ``Z = I``: returns
+    ``(a^{1/2}, a^{-1/2})``. With ``lam_min`` the input is scaled by
+    ``2/(lam_min + lam_max)``, which centres its spectrum about 1."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    lam_max = _spectral_bound(a)
+    norm = lam_max if lam_min is None else 0.5 * (lam_max + lam_min)
+    norm = torch.clamp(norm, min=torch.finfo(a.dtype).tiny)
+    y = a / norm
+    z = eye.expand(a.shape)
+    for _ in range(num_iters):
+        t = 0.5 * (3.0 * eye - z @ y)
+        y, z = y @ t, t @ z
+    sqrt_norm = torch.sqrt(norm)
+    return y * sqrt_norm, z / sqrt_norm
+
+
+def inv_sqrt_psd_newton(a: torch.Tensor, num_iters: int = 14,
+                        lam_min: Optional[float] = None):
+    """Matmul-only ``(a^{-1}, a^{-1/2})`` of a batched SPD matrix by the
+    coupled Newton-Schulz iteration; ``lam_min`` is a known lower bound of
+    the spectrum (the ETKF regularizer ``(K-1)/rho``)."""
+    _, a_inv_sqrt = _coupled_newton_schulz(a, num_iters, lam_min)
+    return a_inv_sqrt @ a_inv_sqrt, a_inv_sqrt
+
+
+def sqrt_and_inv_sqrt_psd_newton(a: torch.Tensor, num_iters: int = 14,
+                                 lam_min: Optional[float] = None):
+    """``(a^{1/2}, a^{-1/2})`` by the iteration of
+    :func:`inv_sqrt_psd_newton`."""
+    return _coupled_newton_schulz(a, num_iters, lam_min)
+
+
+def inv_spd_newton(a: torch.Tensor, num_iters: int = 12,
+                   lam_min: Optional[float] = None) -> torch.Tensor:
+    """Matmul-only inverse of a batched SPD matrix by the Newton-Schulz
+    iteration ``V <- V + V (I - A V)``, seeded with ``2/(lam_min + lam_max)
+    I`` (``1/lam_max I`` without ``lam_min``)."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    lam_max = _spectral_bound(a)
+    scale = 1.0 / lam_max if lam_min is None else 2.0 / (lam_max + lam_min)
+    v = scale * eye + 0.0 * a  # the seed carries a NaN of a, as in JAX
+    for _ in range(num_iters):
+        v = v + v @ (eye - a @ v)
+    return v

@@ -14,7 +14,8 @@ Distance functions are user-supplied torch callables
 The fixed-size neighborhood selections pick ``max_obs`` observations per
 grid column: by the largest taper weights (:func:`neighborhood_select`), or
 as a window around the column's rank among sorted coordinates
-(:func:`neighborhood_select_window`).
+(:func:`neighborhood_select_window`); :func:`select_neighborhoods` picks
+one of the two by name.
 """
 
 import functools
@@ -31,6 +32,8 @@ __all__ = [
     "neighborhood_select_window",
     "periodic_distance",
     "safe_sqrt",
+    "safe_sqrt_keep_nan",
+    "select_neighborhoods",
     "taper_support_z",
 ]
 
@@ -41,6 +44,14 @@ def safe_sqrt(w: torch.Tensor) -> torch.Tensor:
     pos = w > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, w, torch.ones_like(w))),
                        torch.zeros_like(w))
+
+
+def safe_sqrt_keep_nan(w: torch.Tensor) -> torch.Tensor:
+    """:func:`safe_sqrt` that leaves NaN weights NaN, so that the strict
+    window selections' NaN poison reaches the sqrt-weight-scaled
+    neighborhoods (``safe_sqrt`` maps NaN to 0, which would give an
+    overflowing column the unchanged prior)."""
+    return torch.where(torch.isnan(w), w, safe_sqrt(w))
 
 
 def abs_distance(grid_coord: torch.Tensor,
@@ -353,3 +364,20 @@ def neighborhood_select_window(localization, grid_coords: torch.Tensor,
         weights = torch.nn.functional.pad(weights, pad)
         idx = torch.nn.functional.pad(idx, pad)
     return idx, weights
+
+
+def select_neighborhoods(localization, grid_coords: torch.Tensor,
+                         obs_coords: torch.Tensor, max_obs: int,
+                         selection: str = "topk", strict: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The neighborhoods of :func:`neighborhood_select` (``selection=
+    "topk"``) or of :func:`neighborhood_select_window` (``"window"``, with
+    ``strict``)."""
+    if selection == "window":
+        return neighborhood_select_window(localization, grid_coords,
+                                          obs_coords, max_obs, strict=strict)
+    if selection == "topk":
+        return neighborhood_select(localization, grid_coords, obs_coords,
+                                   max_obs)
+    raise ValueError(f"selection must be 'topk' or 'window'; got "
+                     f"{selection!r}")
