@@ -3,8 +3,9 @@ Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
 Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
 IEnKS smoother (Jacobi SVD + fused RK4), the neighborhood solvers (cheb,
-pallas) and the LETKF class API at the reference benchmark shapes, checks
-them against f64 oracles, and times the kernels.
+pallas), the LETKF class API and the 2-D LETKF (fused2d and its x-strips)
+at the reference benchmark shapes, checks them against f64 oracles, and
+times the kernels.
 
     python3 chip_smoke.py
 
@@ -22,8 +23,14 @@ Phases (one line each; any failure exits non-zero):
     plain                          against f64 eigh
  14 cheb and pallas analyses    16 times of K4, K5 and the class API
     against f64 eigh
-Then one JSON line with each kernel's launches, error and times, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+ 17 K6 (2-D window) against     19 bench config 8 (1024 x 1024, 10^5 obs,
+    plain at bench config 7        16 strips): K6 against plain, the strip
+    (128 x 128, 1024 obs)          analysis on sampled columns and the
+ 18 fused2d at config 7            class API (auto strips; smoother at
+    against f64 eigh               config 7) against f64 eigh
+ 20 times of K6 and of the 2-D analyses
+Then the card's name and power limit, one JSON line with each kernel's
+launches, error, times and bound, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -40,10 +47,13 @@ import tpu_assim_torch
 from tpu_assim_torch import _build
 from tpu_assim_torch.analysis import (
     _normalized_obs_space,
+    _strip_inputs_2d,
+    _strip_plan_2d,
     _with_time,
     make_cycle_step,
     make_letkf_analysis,
     make_lienks_step,
+    make_strip_letkf_2d,
 )
 from tpu_assim_torch import LETKF, EnsembleState, Observation
 from tpu_assim_torch.convert import coord1_distance
@@ -70,6 +80,35 @@ FACTOR_TOL = 1e-4   # K3: reconstruction (relative to max|A|) and
 PALLAS_TOL = 2e-4   # method="pallas" against the f64 oracle: the JAX
                     # package's bound for K5 (tests/test_etkf_core.py:363)
 NS_ITERS = 25       # make_letkf_analysis's default newton_iters
+R2 = 4.0            # GC radius in x and in y of bench configs 7 and 8
+# The least time of a kernel's work on an H100 SXM (its published peak
+# rates): its bytes at the HBM rate, its FLOPs at the f32 rate outside the
+# tensor cores (the kernels compute in f32 without them).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes, flops):
+    """``(ms, "bytes" or "operations")``: the larger of ``n_bytes`` at the
+    HBM rate and ``flops`` at the f32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cheb_flops(k, nb, ns, degree):
+    """FLOPs of one column's Chebyshev solve and apply
+    (csrc/cheb_core.cuh): the symmetric Gram matrix (nb (nb + 1) / 2
+    entries of k multiply-adds), u_i = Zh sp_i, the degree + 1 Clenshaw
+    steps over 1 + ns operands (a matvec and 5 FLOPs per entry), the
+    apply."""
+    return (nb * (nb + 1) * k + 2 * ns * nb * k
+            + (degree + 1) * (1 + ns) * nb * (2 * nb + 5)
+            + ns * k * (4 * nb + 4))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(phase, msg):
@@ -198,6 +237,16 @@ def run_ns(args, iters, plain=False):
     return fn(*args, (k - 1) / INF, k, iters)
 
 
+def jacobi_sweeps(a):
+    """The sweeps K3 runs on ``a`` before no matrix rotates any more: the
+    smallest cap whose singular values equal those under the cap of 20."""
+    full = k3.svd_jacobi(a)[1]
+    for sweeps in range(1, 21):
+        if torch.equal(k3.svd_jacobi(a, sweeps)[1], full):
+            return sweeps
+    return 20
+
+
 def counted(fn, *args):
     """``fn(*args)`` with every kernel's launch count set to 0 just before;
     returns the result and the counts read just after, those of 0
@@ -297,13 +346,49 @@ def median_ms(fn, reps=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def paired_ms(kernel_fn, plain_fn, plain_time=None):
+def device_profile(fn, calls=5):
+    """One torch.profiler window (CUDA activity) over ``calls`` calls of
+    ``fn`` after a warm-up call: ``(wall ms per call, device ms per call,
+    [(kernel, device ms per call), ...] largest first)``. The device time
+    is the sum of the kernels' own times, so 1 - device / wall is the
+    device's idle share in the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        rows.append((e.key, us / 1e3 / calls))
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(ms for _, ms in rows), rows
+
+
+def profile_note(label, fn, calls=5):
+    wall, busy, rows = device_profile(fn, calls)
+    check(busy > 0, f"profile {label}: no device time recorded")
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
+    return (f"{label}: wall {wall!r} ms/call, device {busy!r} ms/call (idle "
+            f"{1 - busy / wall:.1%}); kernels, ms/call: {top}")
+
+
+def paired_ms(kernel_fn, plain_fn, plain_time=None, kernel_time=None):
     """Per-call medians, 20 samples each, in turns plain, kernel, kernel,
-    plain; ``plain_time`` (default ``median_ms`` over 10 samples) times a
-    plain half."""
+    plain; ``plain_time`` and ``kernel_time`` (default ``median_ms`` over
+    10 samples) time a half."""
     plain_time = plain_time or (lambda fn: median_ms(fn, 10))
-    halves = [plain_time(plain_fn), median_ms(kernel_fn, 10),
-              median_ms(kernel_fn, 10), plain_time(plain_fn)]
+    kernel_time = kernel_time or (lambda fn: median_ms(fn, 10))
+    halves = [plain_time(plain_fn), kernel_time(kernel_fn),
+              kernel_time(kernel_fn), plain_time(plain_fn)]
     return (halves[1] + halves[2]) / 2.0, (halves[0] + halves[3]) / 2.0
 
 
@@ -471,9 +556,15 @@ def main():
     nb_bench = exact_nb(worst)
     ms_k1_bench = median_ms(lambda: run_window(args, nb_bench))
     ms_cycle = median_ms(next_cycle)
+    # inputs read once, the output (the size of sp) written once
+    kinds["window1d"]["bound"] = bound(
+        nbytes(*args) + nbytes(args[4]),
+        args[3].numel() * cheb_flops(40, nb, 1, DEGREE))
+    kinds["rk4_l96"]["bound"] = bound(2 * nbytes(state),
+                                      n_steps * state.numel() * 31)
     for name, t in kinds.items():
-        log(7, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms "
-            f"[{gpu}]")
+        log(7, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
+            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}) [{gpu}]")
     log(7, f"window1d at nb={nb_bench} (bench.py's exact_nb): kernel "
         f"{ms_k1_bench!r} ms [{gpu}]")
     log(7, f"fused1d analysis {ms_analysis!r} ms/analysis "
@@ -583,6 +674,15 @@ def main():
         plain_time=event_ms)
     # cuSOLVER was set up by the f64 step: one call each, no warm-up
     ms_lapack = event_ms(lambda: torch.linalg.svd(gauss), reps=1, warmup=0)
+    kinds["svd_jacobi"]["library_ms"] = ms_lapack
+    sweeps = jacobi_sweeps(gauss)
+    b, kk = gauss.shape[0], gauss.shape[-1]
+    kp = kk + kk % 2
+    # per sweep and matrix: Kp - 1 rounds of Kp/2 pairs, each three dot
+    # products and two rotations of a column pair of A and of V
+    kinds["svd_jacobi"]["bound"] = bound(
+        3 * nbytes(gauss) + b * kk * 4,
+        sweeps * b * (kp - 1) * (kp // 2) * 18 * kk)
     ms_step = median_ms(lambda: lienks(*wt), reps=10, inner=3)
     set_jacobi_dispatch(False)
     try:
@@ -592,13 +692,15 @@ def main():
     log(11, f"svd_jacobi [10^4, 40, 40] f32: kernel "
         f"{kinds['svd_jacobi']['ms']!r} ms, plain "
         f"{kinds['svd_jacobi']['plain_ms']!r} ms, torch.linalg.svd "
-        f"{ms_lapack!r} ms (one call) [{gpu}]")
+        f"{ms_lapack!r} ms (one call), bound "
+        f"{kinds['svd_jacobi']['bound'][0]!r} ms at {sweeps} sweeps [{gpu}]")
     log(11, f"IEnKS step (config 9): {ms_step!r} ms = "
         f"{10000 / ms_step * 1e3!r} grid-points/s with K3; "
         f"{ms_step_lapack!r} ms = {10000 / ms_step_lapack * 1e3!r} "
         f"grid-points/s with torch.linalg.svd (one call) [{gpu}]")
 
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
+    window2d_phases(dev, gpu, kinds, launches)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -611,13 +713,16 @@ def main():
                      "tpu_assim/ops/pallas/letkf.py:668"),
         "nbh_ns": ("tpu_assim_torch/csrc/letkf_nbh_ns.cu",
                    "tpu_assim/ops/pallas/letkf.py:322"),
+        "window2d": ("tpu_assim_torch/csrc/letkf_window2d.cu",
+                     "tpu_assim/ops/pallas/letkf.py:1353"),
     }
     print(gpu)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-         "plain_ms": t["plain_ms"]}
+         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+         "bound_by": t["bound"][1], "library_ms": t.get("library_ms")}
         for name, t in kinds.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -781,6 +886,12 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     kinds["nbh_ns"]["ms"], kinds["nbh_ns"]["plain_ms"] = paired_ms(
         lambda: run_ns(a13, NS_ITERS), lambda: run_ns(a13, NS_ITERS,
                                                       plain=True))
+    kinds["nbh_cheb"]["bound"] = bound(
+        nbytes(*a12) + nbytes(a12[2]), g * cheb_flops(40, NB, 1, DEGREE))
+    kinds["nbh_ns"]["bound"] = bound(
+        nbytes(*a13) + nbytes(a13[2]),
+        g * (NB * (NB + 1) * 40 + (5 * NS_ITERS + 2) * 2 * NB ** 3
+             + 4 * NB * 40 + 4 * NB * NB))
     ms_k4_s = median_ms(lambda: run_cheb(a6, 48))
     state1, obs1 = class_api_inputs(wt[0][None, None], w, 1)
     obs1 = obs1.replace(observations=wt[1][None])
@@ -790,12 +901,280 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     ms_pallas = median_ms(lambda: pallas(*wt), reps=10, inner=3)
     for name in ("nbh_cheb", "nbh_ns"):
         t = kinds[name]
-        log(16, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms "
-            f"[{gpu}]")
+        log(16, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
+            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}) [{gpu}]")
     log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms [{gpu}]")
     log(16, f"per call: LETKF(cheb).assimilate [1, 1, 40, {g}] {ms_class!r} "
         f"ms; make_letkf_analysis cheb {ms_cheb!r} ms, pallas {ms_pallas!r} "
         f"ms [{gpu}]")
+
+
+def workload_2d(n, n_obs, sort_cells):
+    """The workload of bench.py configs 7 and 8: a row-major n x n grid,
+    ``n_obs`` observed cells drawn without replacement (sorted for config
+    8), a random ensemble of 40, random observations of unit variance."""
+    rnd = np.random.RandomState(SEED)
+    yy, xx = np.meshgrid(np.arange(n, dtype="f4"), np.arange(n, dtype="f4"),
+                         indexing="ij")
+    grid = np.stack([xx.ravel(), yy.ravel()], 1)
+    cells = rnd.choice(n * n, size=n_obs, replace=False)
+    if sort_cells:
+        cells = np.sort(cells)
+    state = rnd.normal(size=(40, n * n)).astype(np.float32)
+    vals = rnd.normal(size=n_obs).astype(np.float32)
+    return (state, vals, np.ones(n_obs, np.float32),
+            cells.astype(np.int32), grid, grid[cells])
+
+
+def dist2(grid_coord, obs_coords):
+    """Per-dimension distances in x and y (columns 1 and 2 of the
+    localization info rows)."""
+    return torch.stack([torch.abs(obs_coords[:, 1] - grid_coord[1]),
+                        torch.abs(obs_coords[:, 2] - grid_coord[2])], 0)
+
+
+def k6_vs_plain(args, kw, label):
+    """K6 through ``window2d_banded`` (one counted launch) against
+    ``window2d_plain`` on the same inputs; returns the kernel's output, the
+    max abs error and the number of NaN columns."""
+    before = k1.LAUNCHES["window2d"]
+    out = k1.window2d_banded(*args, **kw)
+    torch.cuda.synchronize()
+    check(k1.LAUNCHES["window2d"] == before + 1, f"{label}: K6 launches")
+    err, _ = compare(out, k1.window2d_plain(*args, **kw), label)
+    return out, err, int(torch.isnan(out).any(1).any(0).sum())
+
+
+def sampled_oracle(loc, w8, cols, dev):
+    """The f64 eigh analysis of the config-8 columns ``cols`` of each strip
+    of ``plan`` (a list of index arrays): per strip, over the observations
+    within 2 rx + 1 of its columns in x (every one with a nonzero taper
+    weight), as the dense f64 analysis of the whole grid would give them."""
+    state, vals, var, cells, grid, obs = w8
+    ens_obs = torch.as_tensor(state[:, cells], dtype=torch.float64,
+                              device=dev)
+    outs = []
+    for c in cols:
+        gx = grid[c, 0]
+        sel = np.nonzero((obs[:, 0] > gx.min() - 2 * R2 - 1)
+                         & (obs[:, 0] < gx.max() + 2 * R2 + 1))[0]
+        sel_t = torch.as_tensor(sel, device=dev)
+        analyse = make_letkf_analysis(
+            loc, INF, method="eigh",
+            obs_operator=lambda _, sel_t=sel_t: ens_obs[:, sel_t])
+        f64 = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+               for a in (state[:, c], vals[sel], var[sel], grid[c],
+                         obs[sel])]
+        outs.append(analyse(*f64[:3], None, *f64[3:]))
+    return torch.cat(outs, dim=1)
+
+
+def class_2d_inputs(data, grid, cells, obs, vals):
+    """An EnsembleState of ``data`` [v, t, 40, g] on ``grid`` and one
+    Observation of variable "x" at ``cells`` at every one of its times
+    (``vals`` [t, o]), by IdentityOperator."""
+    dev = data.device
+    times = torch.arange(data.shape[1], dtype=data.dtype, device=dev)
+    state = EnsembleState(data, times=times,
+                          grid_coords=torch.as_tensor(grid, device=dev),
+                          var_names=("x", "y")[:data.shape[0]])
+    observation = Observation(
+        torch.as_tensor(vals, dtype=data.dtype, device=dev),
+        torch.ones(vals.shape[-1], dtype=data.dtype, device=dev),
+        obs_coords=torch.as_tensor(obs, dtype=data.dtype, device=dev),
+        times=times,
+        operator=IdentityOperator(obs_points=cells, len_grid=grid.shape[0]))
+    return state, observation
+
+
+def window2d_phases(dev, gpu, kinds, launches):
+    """Phases 17-20: K6 against its plain version at bench config 7, the
+    fused2d analysis at config 7, config 8 through the strips and the
+    class API against f64 oracles, and times."""
+    loc = GaspariCohn((R2, R2), dist2)
+    reg = 39 / INF
+    # -- 17. K6 against its plain version at config 7 ----------------------
+    w7 = workload_2d(128, 1024, sort_cells=False)
+    g7, o7 = w7[4].shape[0], w7[5].shape[0]
+    nb7 = exact_nb(k1.max_in_support_2d(w7[5], w7[4], R2, R2))
+    blk7 = k1.required_obs_block_2d(w7[5][:, 1], w7[4][:, 1], R2)
+    wt7 = [torch.as_tensor(a, device=dev) for a in w7]
+    perts7, innov7 = _normalized_obs_space(wt7[0][:, wt7[3].long()], wt7[1],
+                                           wt7[2])
+    mean7 = wt7[0].mean(0)
+    sp7 = wt7[0] - mean7
+    # a third coordinate for the extra-radius case: a level per cell
+    z = torch.remainder(wt7[4][:, 0] + 2 * wt7[4][:, 1], 3.0)[:, None]
+    grid3, obs3 = torch.cat([wt7[4], z], 1), torch.cat([wt7[5], z[wt7[3]]], 1)
+    cases = (
+        ("banded", blk7, nb7, 1, (), True),
+        ("whole table, not strict", o7, nb7, 1, (), False),
+        ("whole table, strict", o7, nb7, 1, (), True),
+        ("ns 3", blk7, nb7, 3, (), True),
+        ("3 coords, extra radius 1.5", blk7, nb7, 1, (1.5,), True),
+        (f"strict, nb {nb7 // 2}", blk7, nb7 // 2, 1, (), True),
+    )
+    notes = []
+    err_k6 = 0.0
+    for label, block, nb, ns, extra, strict in cases:
+        sp = torch.stack([torch.roll(sp7, s, dims=1) for s in range(ns)])
+        mean = torch.stack([mean7 + s for s in range(ns)])
+        coords = (obs3, grid3) if extra else (wt7[5], wt7[4])
+        args, width = k1.window2d_inputs(perts7, innov7, *coords, sp, mean,
+                                         reg, R2, R2, block,
+                                         extra_radii=extra)
+        kw = dict(width=width, ens_size=40, nb=nb, degree=DEGREE,
+                  epsilon=1e-5, taper="gc2", strict=strict)
+        _, e, n_nan = k6_vs_plain(args, kw, f"K6 config 7 {label}")
+        err_k6 = max(err_k6, e)
+        if label.startswith("strict"):
+            check(0 < n_nan < g7, f"{label}: {n_nan} NaN columns")
+        elif label != "whole table, strict":
+            check(n_nan == 0, f"{label}: {n_nan} NaN columns")
+        notes.append(f"{label} {e!r} ({n_nan} NaN columns)")
+        if label == "banded":
+            args7, kw7 = args, kw
+    log(17, f"K6 window2d, bench config 7 (128x128, ens 40, obs 1024, GC "
+        f"r=4, nb {nb7}, block {blk7}, degree {DEGREE}) against plain, max "
+        f"abs err: " + "; ".join(notes))
+
+    # -- 18. fused2d at config 7 against the f64 eigh oracle ---------------
+    fused7 = make_letkf_analysis(loc, INF, method="fused2d", max_obs=nb7,
+                                 cheb_degree=DEGREE, obs_block=blk7)
+    out7, counts = counted(fused7, *wt7)
+    check(counts == {"window2d": 1}, f"fused2d launches {counts}")
+    w64_7 = [t.double() if t.is_floating_point() else t for t in wt7]
+    t0 = time.perf_counter()
+    oracle7 = make_letkf_analysis(loc, INF, chunksize=4096,
+                                  method="eigh")(*w64_7)
+    s_oracle = time.perf_counter() - t0
+    _, rel7 = compare(out7, oracle7, "fused2d config 7 vs f64 eigh")
+    log(18, f"fused2d config 7 (1 K6 launch) vs the f64 eigh oracle "
+        f"({s_oracle:.1f} s): max rel err {rel7!r} (budget {TOL})")
+
+    # -- 19. config 8 through the strips and the class API -----------------
+    w8 = workload_2d(1024, 100_000, sort_cells=True)
+    g8 = w8[4].shape[0]
+    wt8 = [torch.as_tensor(a, device=dev) for a in w8[:3]]
+    t0 = time.perf_counter()
+    plan = _strip_plan_2d(loc, w8[4], w8[5], 16, None, True)
+    s_plan = time.perf_counter() - t0
+    perts8, innov8 = _normalized_obs_space(
+        wt8[0][:, torch.as_tensor(w8[3], device=dev).long()], wt8[1], wt8[2])
+    mean8 = wt8[0].mean(0)
+    args8, kw8 = _strip_inputs_2d(plan, perts8, innov8,
+                                  (wt8[0] - mean8)[None], mean8[None], reg,
+                                  16)
+    _, e8, n_nan = k6_vs_plain(args8, kw8, "K6 config 8 strips")
+    check(n_nan == 0, f"config 8: {n_nan} NaN columns")
+    kinds["window2d"] = {"max_abs_err": max(err_k6, e8)}
+    strips = make_strip_letkf_2d(loc, (w8[3], w8[4], w8[5]), n_strips=16,
+                                 inf_factor=INF, cheb_degree=16)
+    out8, counts = counted(strips, *wt8)
+    check(counts == {"window2d": 1}, f"strip analysis launches {counts}")
+    launches["window2d"] = counts["window2d"]
+    check(tuple(out8.shape) == (40, g8) and bool(torch.isfinite(out8).all()),
+          "strip analysis not finite")
+    rnd = np.random.RandomState(SEED + 6)
+    gs = plan["perm"].shape[0] // 16
+    cols = [rnd.choice(np.unique(plan["perm"][s * gs:(s + 1) * gs]), 256,
+                       replace=False) for s in range(16)]
+    t0 = time.perf_counter()
+    oracle8 = sampled_oracle(loc, w8, cols, dev)
+    s_oracle8 = time.perf_counter() - t0
+    flat = torch.as_tensor(np.concatenate(cols), device=dev)
+    _, rel8 = compare(out8[:, flat], oracle8, "strips config 8 vs f64 eigh")
+    notes = [f"strips (16, max_obs {plan['max_obs']}, slice {plan['o_bd']}, "
+             f"1 K6 launch) on {flat.numel()} columns, 256 per strip: "
+             f"{rel8!r}"]
+    state8, obs8 = class_2d_inputs(wt8[0][None, None], w8[4], w8[3], w8[5],
+                                   w8[1][None])
+    letkf8 = LETKF(loc, INF, max_obs=plan["max_obs"], method="fused2d",
+                   cheb_degree=16)
+    t0 = time.perf_counter()
+    out, counts = counted(letkf8.assimilate, state8, obs8)
+    s_first = time.perf_counter() - t0
+    geometry = letkf8._geometry_cache[1]
+    check(counts == {"window2d": 1}, f"class config 8 launches {counts}")
+    check(geometry["plan"] is not None
+          and geometry["plan"]["n_strips"] == 4, "class auto strips: not 4")
+    out, counts = counted(letkf8.assimilate, state8, obs8)
+    check(letkf8._geometry_cache[1] is geometry and counts == {"window2d": 1},
+          "class config 8: the strip plan was not reused")
+    _, rel = compare(out.data[0, 0][:, flat], oracle8,
+                     "class config 8 vs f64 eigh")
+    notes.append(f"LETKF.assimilate [1, 1, 40, {g8}] auto strips 4 (first "
+                 f"call {s_first:.1f} s, then cached), 1 K6 launch: {rel!r}")
+    rnd = np.random.RandomState(SEED + 7)
+    data = torch.as_tensor(rnd.normal(size=(2, 2, 40, g7)).astype(np.float32),
+                           device=dev)
+    vals = rnd.normal(size=(2, o7))
+    nb_s = exact_nb(k1.max_in_support_2d(np.tile(w7[5], (2, 1)), w7[4], R2,
+                                         R2))
+    state, obs = class_2d_inputs(data, w7[4], w7[3], w7[5], vals)
+    state64, obs64 = class_2d_inputs(data.double(), w7[4], w7[3], w7[5], vals)
+    alg = LETKF(loc, INF, max_obs=nb_s, method="fused2d", smoother=True)
+    out, counts = counted(alg.assimilate, state, obs)
+    check(counts == {"window2d": 1} and alg._geometry_cache[1]["plan"] is None,
+          f"class smoother launches {counts}")
+    oracle_s = LETKF(loc, INF, smoother=True).assimilate(state64, obs64)
+    _, rel = compare(out.data, oracle_s.data, "class smoother vs f64 eigh")
+    notes.append(f"smoother [2, 2, 40, {g7}] single kernel (nb {nb_s}): "
+                 f"{rel!r}")
+    log(19, f"bench config 8 (1024x1024, ens 40, obs 10^5, 16 strips, "
+        f"degree 16; plan {s_plan:.2f} s on the host): K6 vs plain max abs "
+        f"err {e8!r}; against f64 eigh (sampled oracle {s_oracle8:.1f} s): "
+        + "; ".join(notes) + f" (budget {TOL})")
+
+    # -- 20. times ---------------------------------------------------------
+    def k6(args, kw):
+        return lambda: k1.window2d_banded(*args, **kw)
+
+    def plain(args, kw):
+        return lambda: k1.window2d_plain(*args, **kw)
+
+    def few(fn):
+        return median_ms(fn, reps=5, inner=2, warmup=1)
+
+    ms7, plain7 = paired_ms(k6(args7, kw7), plain(args7, kw7),
+                            plain_time=few)
+    kinds["window2d"]["ms"], kinds["window2d"]["plain_ms"] = paired_ms(
+        k6(args8, kw8), plain(args8, kw8), plain_time=event_ms,
+        kernel_time=few)
+    kinds["window2d"]["bound"] = bound(
+        nbytes(*args8) + nbytes(args8[3]),
+        args8[3].shape[-1] * cheb_flops(40, plan["max_obs"], 1, 16))
+    bound7 = bound(nbytes(*args7) + nbytes(args7[3]),
+                   args7[3].shape[-1] * cheb_flops(40, nb7, 1, DEGREE))
+    ms_fused7 = median_ms(lambda: fused7(*wt7), reps=10, inner=3)
+    ms_strips = median_ms(lambda: strips(*wt8), reps=5, inner=1, warmup=1)
+    ms_class8 = event_ms(lambda: letkf8.assimilate(state8, obs8))
+    t = kinds["window2d"]
+    log(20, f"window2d config 7 (banded, nb {nb7}): kernel {ms7!r} ms, plain "
+        f"{plain7!r} ms, bound {bound7[0]!r} ms ({bound7[1]}); config 8 "
+        f"strips (nb {plan['max_obs']}): kernel {t['ms']!r} ms, plain "
+        f"{t['plain_ms']!r} ms, bound {t['bound'][0]!r} ms ({t['bound'][1]}) "
+        f"[{gpu}]")
+    log(20, f"per call: fused2d config 7 {ms_fused7!r} ms = "
+        f"{g7 / ms_fused7 * 1e3!r} grid-points/s; strips config 8 "
+        f"{ms_strips!r} ms = {g8 / ms_strips * 1e3!r} grid-points/s; "
+        f"LETKF.assimilate config 8 {ms_class8!r} ms; the config-8 plan "
+        f"{s_plan * 1e3!r} ms on the host [{gpu}]")
+    # the class layer's cached geometry: a hit compares the coordinates on
+    # the card
+    info8 = (state8.grid_info(), obs8.stacked_coords())
+    hits = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        hit = letkf8._fused2d_geometry(*info8)
+        hits.append((time.perf_counter() - t0) * 1e3)
+        check(hit is geometry, "class config 8: the geometry cache missed")
+    notes = [profile_note("fused2d config 7", lambda: fused7(*wt7)),
+             profile_note("LETKF.assimilate config 8",
+                          lambda: letkf8.assimilate(state8, obs8))]
+    log(20, "torch.profiler, 5 calls each: " + "; ".join(notes)
+        + f"; geometry cache hit at config 8 {statistics.median(hits)!r} ms "
+        f"on the host [{gpu}]")
 
 
 if __name__ == "__main__":

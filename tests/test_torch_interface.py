@@ -145,7 +145,7 @@ def test_observation_times_and_coords(rng):
         to.sel_time(1.0)
     assert not to.replace(times=to.times[:2]).valid
     # a port Observation from the JAX one's arrays
-    conv = convert.from_tpu_assim(jo)
+    conv = convert.from_tpu_assim(jo, device="cpu")
     assert conv.operator is None and conv.valid
     close(conv.stacked_coords(), jo.stacked_coords())
 
@@ -263,8 +263,10 @@ def test_class_api_config_errors():
         TT.LETKF(method="cheb")
     with pytest.raises(ValueError):
         TT.LETKF(loc, method="fused1d", max_obs=16, weight_save_path="w.h5")
-    with pytest.raises(NotImplementedError, match="K6"):
-        TT.LETKF(loc, method="fused2d", max_obs=16)
+    with pytest.raises(ValueError):
+        TT.LETKF(loc, method="fused2d")
+    with pytest.raises(TypeError):
+        TT.LETKF(object(), method="fused2d", max_obs=16)
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.LETKF(loc, weight_save_path="w.h5")
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -289,7 +291,7 @@ def test_fused1d_strict_overflow_raises(pair):
 
 def test_state_from_tpu_assim(rng):
     js, _ = states(rng)
-    ts = convert.from_tpu_assim(js)
+    ts = convert.from_tpu_assim(js, device="cpu")
     assert ts.var_names == js.var_names and ts.valid
     close(ts.data, js.data)
     close(ts.grid_info(), js.grid_info())

@@ -211,16 +211,15 @@ def test_truncation_allowed_when_not_strict(rng, jax_loc):
 @pytest.mark.parametrize("method", ["newton", "woodbury", "cheb", "pallas",
                                     "fused2d"])
 def test_unported_methods_name_their_roadmap_item(jax_loc, method):
-    """Every solver not ported yet names its ROADMAP.md item; the ported
-    ones build (their parity is in tests/test_torch_nbh.py)."""
+    """Every solver of the JAX package is ported and builds (their parity
+    is in tests/test_torch_nbh.py and tests/test_torch_window2d.py); an
+    unknown one raises."""
     loc = convert.from_tpu_assim(jax_loc)
-    if method in TA._NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TA.make_letkf_analysis(loc, 1.1, method=method, max_obs=8)
-    else:
-        assert callable(TA.make_letkf_analysis(loc, 1.1, method=method,
-                                               max_obs=8))
-    assert set(TA._NOT_PORTED) == {"fused2d"}
+    assert callable(TA.make_letkf_analysis(loc, 1.1, method=method,
+                                           max_obs=8))
+    assert not hasattr(TA, "_NOT_PORTED")
+    with pytest.raises(ValueError, match="unknown method"):
+        TA.make_letkf_analysis(loc, 1.1, method="fused3d", max_obs=8)
 
 
 # -- the cycle -----------------------------------------------------------------

@@ -18,10 +18,13 @@ device of the state tensor. The LETKF solvers:
   (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_nbh_analysis_fused`; the
   name is the JAX package's);
 - ``method="fused1d"``: the whole analysis in one CUDA kernel
-  (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_window_analysis_fused`).
+  (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_window_analysis_fused`);
+- ``method="fused2d"``: the whole 2-D analysis in one CUDA kernel
+  (:func:`tpu_assim_torch.ops.cuda.letkf.letkf_window_analysis_fused_2d`).
 
-``method="fused2d"`` raises ``NotImplementedError`` and names its
-ROADMAP.md item. :func:`make_lienks_step` is the localized IEnKS smoother.
+:func:`make_strip_letkf_2d` splits a wide 2-D grid into x-strips that run
+through one launch of the 2-D kernel. :func:`make_lienks_step` is the
+localized IEnKS smoother.
 """
 
 from typing import Callable, Optional
@@ -38,9 +41,13 @@ from tpu_assim_torch.ops.cuda.letkf import (
     letkf_nbh_analysis_cheb,
     letkf_nbh_analysis_fused,
     letkf_window_analysis_fused,
+    letkf_window_analysis_fused_2d,
     max_in_support_1d,
+    max_in_support_2d,
     raise_if_overflow,
+    required_obs_block_2d,
     taper_name,
+    window2d_banded,
 )
 from tpu_assim_torch.ops.etkf import (
     etkf_weights,
@@ -52,17 +59,16 @@ from tpu_assim_torch.ops.localization import (
     safe_sqrt,
     safe_sqrt_keep_nan,
     select_neighborhoods,
+    taper_support_z,
 )
 
 __all__ = ["make_cycle_step", "make_etkf_analysis", "make_letkf_analysis",
-           "make_lienks_step"]
+           "make_lienks_step", "make_strip_letkf_2d"]
 
-_NOT_PORTED = {
-    "fused2d": "ROADMAP.md Queue 2 K6 (method='fused2d', kernel K6)",
-}
-_METHODS = ("eigh", "newton", "woodbury", "cheb", "pallas", "fused1d")
+_METHODS = ("eigh", "newton", "woodbury", "cheb", "pallas", "fused1d",
+            "fused2d")
 # methods that need a localization and max_obs
-_NBH_METHODS = ("woodbury", "cheb", "pallas", "fused1d")
+_NBH_METHODS = ("woodbury", "cheb", "pallas", "fused1d", "fused2d")
 
 
 def _normalized_obs_space(ens_obs, obs_vals, obs_var):
@@ -87,6 +93,18 @@ def _normalized_obs_space(ens_obs, obs_vals, obs_var):
 def _with_time(coords):
     """Localization info rows: a time column (zero), then the coords."""
     return torch.cat([torch.zeros_like(coords[:, :1]), coords], dim=1)
+
+
+def radii_2d(localization, n_dims: int = 2):
+    """``(rx, ry, extra)`` of a Gaspari-Cohn localization for the 2-D
+    window analysis: the first radius for x, the second (else the first)
+    for y, and for each further coordinate dim its radius, else the last
+    one."""
+    radii = np.atleast_1d(np.asarray(localization.radius, dtype=float))
+    extra = tuple(float(radii[j] if j < radii.size else radii[-1])
+                  for j in range(2, n_dims))
+    return (float(radii[0]), float(radii[1] if radii.size > 1 else radii[0]),
+            extra)
 
 
 def _check_selection(selection: str) -> None:
@@ -142,22 +160,28 @@ def make_letkf_analysis(
         — the Woodbury solve and apply over the neighborhoods in one
         kernel; ``"fused1d"`` — the whole analysis in one kernel, for
         sorted 1-D obs coordinates (column 0 of the coordinates) and a
-        single-radius Gaspari-Cohn taper. ``woodbury``, ``cheb``,
-        ``pallas`` and ``fused1d`` need a localization and ``max_obs``.
+        single-radius Gaspari-Cohn taper; ``"fused2d"`` — the whole 2-D
+        analysis in one kernel, over coordinate columns (x, y, ...) in any
+        order, with per-dimension radii. ``woodbury``, ``cheb``,
+        ``pallas``, ``fused1d`` and ``fused2d`` need a localization and
+        ``max_obs``.
     newton_iters : Newton-Schulz iterations of ``newton``, ``woodbury`` and
         ``pallas``.
     max_obs : the neighborhood size (None with ``eigh``/``newton``: the
-        dense taper) and the window size of ``fused1d``.
-    cheb_degree : Chebyshev degree of ``cheb`` and ``fused1d``.
+        dense taper) and the window size of ``fused1d`` and ``fused2d``.
+    cheb_degree : Chebyshev degree of ``cheb``, ``fused1d`` and
+        ``fused2d``.
     selection : how the neighborhoods are picked: ``"topk"`` (largest
         taper weights) or ``"window"`` (sorted 1-D obs coordinates; see
         :func:`tpu_assim_torch.ops.localization.neighborhood_select_window`).
-    obs_block : accepted for parity with the JAX signature and ignored: the
-        window kernel searches the whole coordinate table.
+    obs_block : the per-tile y-band width of ``fused2d``; None computes the
+        exact one (:func:`required_obs_block_2d`) from the coordinates at
+        each call (or once, with ``geometry``). ``fused1d`` ignores it: its
+        kernel searches the whole coordinate table.
     max_obs_strict : the window selections NaN-poison columns with more
-        in-support observations than ``max_obs``, and ``fused1d`` also
-        raises at call (or build) time; False accepts truncation to the
-        nearest.
+        in-support observations than ``max_obs``, and ``fused1d`` and
+        ``fused2d`` also raise at call (or build) time; False accepts
+        truncation to the nearest.
     geometry : optional ``(obs_idx, grid_coords, obs_coords)`` arrays
         (``obs_idx`` None with an ``obs_operator``), fixed across calls:
         the returned function then takes ``(state_data, obs_vals,
@@ -169,10 +193,6 @@ def make_letkf_analysis(
     analysis_fn(state_data [k, g], obs_vals [o], obs_var, obs_idx [o],
                 grid_coords [g, d], obs_coords [o, d]) -> analysis [k, g]
     """
-    del obs_block
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
     _check_selection(selection)
@@ -186,14 +206,28 @@ def make_letkf_analysis(
             raise ValueError("method='fused1d' supports a single "
                              f"localization radius; got {radius}")
         radius = float(radius[0])
+    if method in ("fused1d", "fused2d"):
         taper = taper_name(localization)
         epsilon = float(localization.epsilon)
 
     def _host_harden(obs_coords_np, grid_coords_np):
-        """Sortedness and, when strict, the in-support bound of fused1d,
-        checked on the host."""
+        """The host checks of the window kernels: for fused1d sortedness
+        and, when strict, the in-support bound; for fused2d, unless
+        ``obs_block`` is given (the kernel's NaN poison then guards), the
+        exact band width and, when strict, the in-support bound. Returns
+        the band width of fused2d."""
+        if method == "fused2d":
+            if obs_block is not None:
+                return obs_block
+            rx, ry, _ = radii_2d(localization)
+            if max_obs_strict:
+                raise_if_overflow(max_in_support_2d(
+                    obs_coords_np[:, :2], grid_coords_np[:, :2], rx, ry,
+                    taper=taper, epsilon=epsilon), max_obs)
+            return required_obs_block_2d(obs_coords_np[:, 1],
+                                         grid_coords_np[:, 1], ry)
         if not fused:
-            return
+            return obs_block
         ox = obs_coords_np[:, 0]
         if ox.shape[0] > 1 and np.any(ox[1:] < ox[:-1]):
             raise ValueError("method='fused1d' needs obs coordinates sorted "
@@ -203,9 +237,10 @@ def make_letkf_analysis(
                 max_in_support_1d(ox, grid_coords_np[:, 0], radius,
                                   taper=taper, epsilon=epsilon),
                 max_obs)
+        return obs_block
 
     def _impl(state_data, obs_vals, obs_var, obs_idx, grid_coords,
-              obs_coords):
+              obs_coords, block):
         if obs_operator is None:
             ens_obs = state_data[:, obs_idx]                       # [k, o]
         else:
@@ -225,6 +260,20 @@ def make_letkf_analysis(
                 degree=cheb_degree, taper=taper, epsilon=epsilon,
                 strict=max_obs_strict,
             )
+
+        if method == "fused2d":
+            n_dims = min(obs_coords.shape[1], grid_coords.shape[1])
+            rx, ry, extra = radii_2d(localization, n_dims)
+            mean = torch.mean(state_data, dim=0)
+            sp = state_data - mean[None, :]
+            return letkf_window_analysis_fused_2d(
+                *(t.to(torch.float32).contiguous()
+                  for t in (perts, innov)),
+                obs_coords[:, :n_dims], grid_coords[:, :n_dims],
+                *(t.to(torch.float32).contiguous() for t in (sp, mean)),
+                (k - 1) / inf_factor, rx, ry, k, obs_block=block,
+                nb=max_obs, degree=cheb_degree, taper=taper,
+                epsilon=epsilon, strict=max_obs_strict, extra_radii=extra)
 
         obs_info = _with_time(obs_coords)
         grid_info = _with_time(grid_coords)
@@ -292,7 +341,7 @@ def make_letkf_analysis(
     if geometry is not None:
         g_idx, g_grid, g_obs = (None if a is None else np.asarray(a)
                                 for a in geometry)
-        _host_harden(g_obs, g_grid)
+        block = _host_harden(g_obs, g_grid)
         on_device = {}
 
         def analysis_fn_static(state_data, obs_vals, obs_var):
@@ -301,19 +350,238 @@ def make_letkf_analysis(
                 on_device[dev] = tuple(
                     None if a is None else torch.as_tensor(a, device=dev)
                     for a in (g_idx, g_grid, g_obs))
-            return _impl(state_data, obs_vals, obs_var, *on_device[dev])
+            return _impl(state_data, obs_vals, obs_var, *on_device[dev],
+                         block)
 
         return analysis_fn_static
 
     def analysis_fn(state_data, obs_vals, obs_var, obs_idx, grid_coords,
                     obs_coords):
-        if fused:
-            _host_harden(obs_coords.detach().cpu().numpy(),
-                         grid_coords.detach().cpu().numpy())
+        block = obs_block
+        if method in ("fused1d", "fused2d"):
+            block = _host_harden(obs_coords.detach().cpu().numpy(),
+                                 grid_coords.detach().cpu().numpy())
         return _impl(state_data, obs_vals, obs_var, obs_idx, grid_coords,
-                     obs_coords)
+                     obs_coords, block)
 
     return analysis_fn
+
+
+def make_strip_letkf_2d(
+    localization,
+    geometry: tuple,
+    n_strips: int,
+    inf_factor: float = 1.0,
+    max_obs: Optional[int] = None,
+    cheb_degree: int = 16,
+    max_obs_strict: bool = True,
+    tile: int = 128,
+):
+    """The 2-D LETKF for wide grids: the grid split into ``n_strips``
+    x-strips, each analysed over only the observations inside its columns'
+    x-support, all strips in one launch of the 2-D window kernel, scattered
+    back into the grid's order. Exact: every strip sees every observation
+    inside its columns' taper support; the strict in-support checks run per
+    strip, here.
+
+    Parameters
+    ----------
+    geometry : ``(obs_cells, grid_xy, obs_xy)``: the flat observed cell
+        index [o], the grid coordinates [g, 2] (x in column 0) and the obs
+        coordinates [o, 2]; fixed across calls.
+    n_strips : number of x-strips.
+    max_obs : window size; None takes the exact worst per-column count
+        under the strip tiling, rounded up to a multiple of 4 (at least 8).
+
+    Returns ``fn(state_data [k, g], obs_vals [o], obs_var [o]) -> [k, g]``
+    (obs_var diagonal, or [o, o] correlated).
+    """
+    plan = _strip_plan_2d(localization, geometry[1], geometry[2], n_strips,
+                          max_obs, max_obs_strict, tile)
+    cells = np.asarray(geometry[0]).astype(np.int64)
+    on_device = {}
+
+    def analysis_fn(state_data, obs_vals, obs_var):
+        dev = state_data.device
+        if dev not in on_device:
+            on_device[dev] = torch.as_tensor(cells, device=dev)
+        k = state_data.shape[0]
+        perts, innov = _normalized_obs_space(
+            state_data[:, on_device[dev]], obs_vals, obs_var)
+        mean = torch.mean(state_data, dim=0)
+        sp = state_data - mean[None, :]
+        out = _strip_apply_2d(plan, perts, innov, sp[None], mean[None],
+                              (k - 1) / inf_factor, cheb_degree)
+        return out[0].to(state_data.dtype)
+
+    return analysis_fn
+
+
+def _strip_plan_2d(localization, grid_xy, obs_xy, n_strips, max_obs,
+                   max_obs_strict, tile: int = 128):
+    """The x-strip plan of concrete 2-D geometry (host-side numpy, shared by
+    :func:`make_strip_letkf_2d` and ``LETKF(method="fused2d")``): the
+    row-major column order of every strip, padded to whole tiles by the
+    strip's first cell; the per-strip observations within the x-cutoff; the
+    window size (auto: the worst per-column count under the strip tiling);
+    one table of ``n_strips`` y-sorted segments of ``p`` slots each (pad
+    slots last); each tile's slice offset and band within its segment; and
+    the scatter back into the grid's order."""
+    gxy = np.asarray(grid_xy, dtype=np.float32)
+    oxy = np.asarray(obs_xy, dtype=np.float32)
+    g = gxy.shape[0]
+    rx, ry, _ = radii_2d(localization)
+    taper = taper_name(localization)
+    eps = float(localization.epsilon)
+    cut = taper_support_z(taper, eps) * rx
+
+    gx, gy = gxy[:, 0], gxy[:, 1]
+    bounds = np.linspace(gx.min(), gx.max() + 1e-6, n_strips + 1)
+    strip_of = np.clip(
+        np.searchsorted(bounds, gx, side="right") - 1, 0, n_strips - 1)
+    cell_idx = []
+    gs = 0
+    for s in range(n_strips):
+        idx = np.nonzero(strip_of == s)[0]
+        idx = idx[np.lexsort((gx[idx], gy[idx]))]   # row-major in the strip
+        cell_idx.append(idx)
+        gs = max(gs, idx.shape[0])
+    gs = -(-gs // tile) * tile
+    # a ragged strip repeats its first cell: the copy's analysis equals the
+    # real one's, and the scatter-back reads the real one
+    cell_idx = [
+        np.concatenate([idx, np.full(gs - len(idx), idx[0], idx.dtype)])
+        if len(idx) < gs else idx
+        for idx in cell_idx
+    ]
+
+    ox = oxy[:, 0]
+    sel, p = [], 0
+    for s in range(n_strips):
+        lo = gx[cell_idx[s]].min() - cut
+        hi = gx[cell_idx[s]].max() + cut
+        sel.append(np.nonzero((ox > lo) & (ox < hi))[0])
+        p = max(p, sel[-1].shape[0])
+    p = max(-(-p // 8) * 8, 8)
+    big = np.float32(np.finfo(np.float32).max)
+    worst = 0
+    if max_obs_strict or max_obs is None:
+        for s in range(n_strips):
+            worst = max(worst, max_in_support_2d(
+                oxy[sel[s]], gxy[cell_idx[s]], rx, ry, taper=taper,
+                epsilon=eps, tile=tile))
+    if max_obs is None:
+        # the strip tiles are taller than the grid's, so their bands are
+        # wider: size the window under this tiling
+        max_obs = max(-(-worst // 4) * 4, 8)
+    elif max_obs_strict:
+        raise_if_overflow(worst, max_obs)
+
+    ord_sel = np.zeros((n_strips, p), dtype=np.int64)
+    seg_valid = np.zeros((n_strips, p), dtype=np.float32)
+    seg_ox = np.full((n_strips, p), big, dtype=np.float32)
+    seg_oy = np.full((n_strips, p), big, dtype=np.float32)
+    for s in range(n_strips):
+        n_s = sel[s].shape[0]
+        ys = np.argsort(oxy[sel[s], 1], kind="stable")
+        ord_sel[s, :n_s] = sel[s][ys]
+        seg_valid[s, :n_s] = 1.0
+        seg_ox[s, :n_s] = oxy[sel[s][ys], 0]
+        seg_oy[s, :n_s] = oxy[sel[s][ys], 1]
+
+    # each tile's band [min(gy) - 2 ry, max(gy) + 2 ry] within its strip's
+    # segment, as a slice of o_bd slots from an 8-aligned offset
+    tiles_per_strip = gs // tile
+    n_tiles = n_strips * tiles_per_strip
+    bands = np.zeros((n_tiles, 3), dtype=np.float32)
+    o_bd = 8
+    for s in range(n_strips):
+        seg_y = seg_oy[s]
+        ty = gy[cell_idx[s]].reshape(tiles_per_strip, tile)
+        lo = ty.min(axis=1) - 2.0 * ry
+        hi = ty.max(axis=1) + 2.0 * ry
+        iy0 = np.clip(np.searchsorted(seg_y, lo), 0, p - 1)
+        iy1 = np.searchsorted(seg_y, hi, side="right")
+        off = np.minimum(iy0, np.maximum(p - 8, 0))
+        off = off - off % 8
+        width = int((iy1 - off).max()) if tiles_per_strip else 8
+        o_bd = max(o_bd, -(-width // 8) * 8)
+        t0 = s * tiles_per_strip
+        bands[t0:t0 + tiles_per_strip, 0] = s * p + off
+        bands[t0:t0 + tiles_per_strip, 1] = iy0 - off
+        bands[t0:t0 + tiles_per_strip, 2] = iy1 - off
+    o_bd = min(o_bd, p)
+    # a slice running past its segment's end shifts down instead
+    over = np.maximum((bands[:, 0] % p) + o_bd - p, 0)
+    bands[:, 0] -= over
+    bands[:, 1] += over
+    bands[:, 2] += over
+
+    perm = np.concatenate(cell_idx)
+    inv = np.zeros(g, dtype=np.int64)
+    inv[perm] = np.arange(perm.shape[0])
+
+    return {
+        "osel": ord_sel.reshape(-1).astype(np.int32),
+        "oval": seg_valid.reshape(-1),
+        "seg_ox": seg_ox.reshape(-1),
+        "seg_oy": seg_oy.reshape(-1),
+        "bands": np.ascontiguousarray(bands.T),       # [3, n_tiles]
+        "o_bd": int(o_bd),
+        "perm": perm.astype(np.int32),
+        "inv": inv.astype(np.int32),
+        "grid2": np.stack([gx[perm], gy[perm]], axis=0),
+        "max_obs": int(max_obs),
+        "rx": rx, "ry": ry, "taper": taper, "eps": eps,
+        "strict": bool(max_obs_strict), "tile": int(tile),
+        "n_strips": int(n_strips), "on_device": {},
+    }
+
+
+def _strip_plan_on(plan, device):
+    """The plan's index, coordinate and band arrays as tensors on
+    ``device``, moved there once."""
+    if device not in plan["on_device"]:
+        dev = {n: torch.as_tensor(plan[n], device=device)
+               for n in ("oval", "seg_ox", "seg_oy", "grid2")}
+        for n in ("osel", "perm", "inv"):
+            dev[n] = torch.as_tensor(plan[n].astype(np.int64), device=device)
+        dev["bands"] = torch.as_tensor(plan["bands"].astype(np.int32),
+                                       device=device)
+        plan["on_device"][device] = dev
+    return plan["on_device"][device]
+
+
+def _strip_apply_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
+    """One launch of the 2-D window kernel over every strip of ``plan``,
+    for R^{-1/2}-normalized ``perts [k, o]``, ``innov [o]`` and the state
+    slices ``sp [ns, k, g]``, ``mean [ns, g]``; ``reg`` = (k - 1)/rho.
+    Returns the analysis [ns, k, g] in the grid's order."""
+    args, kwargs = _strip_inputs_2d(plan, perts, innov, sp, mean, reg,
+                                    cheb_degree)
+    inv = _strip_plan_on(plan, perts.device)["inv"]
+    return window2d_banded(*args, **kwargs)[..., inv]
+
+
+def _strip_inputs_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
+    """The arguments ``(args, kwargs)`` of the strip plan's one call of
+    :func:`window2d_banded` (the analysis in strip order)."""
+    f32 = torch.float32
+    dev = _strip_plan_on(plan, perts.device)
+    k = perts.shape[0]
+    table = torch.cat([
+        (perts.to(f32)[:, dev["osel"]] * dev["oval"]).T,
+        (innov.to(f32)[dev["osel"]] * dev["oval"])[:, None],
+        dev["seg_ox"][:, None], dev["seg_oy"][:, None]], dim=1)  # [S p, k+3]
+    scal = torch.tensor([reg, plan["rx"], plan["ry"]], dtype=f32,
+                        device=perts.device)
+    args = (table.contiguous(), dev["bands"], dev["grid2"],
+            sp.to(f32)[..., dev["perm"]].contiguous(),
+            mean.to(f32)[..., dev["perm"]].contiguous(), scal)
+    return args, dict(width=plan["o_bd"], ens_size=k, nb=plan["max_obs"],
+                      degree=cheb_degree, tile=plan["tile"],
+                      epsilon=plan["eps"], taper=plan["taper"],
+                      strict=plan["strict"])
 
 
 def make_etkf_analysis(inf_factor: float = 1.0,

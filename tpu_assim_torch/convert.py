@@ -48,11 +48,12 @@ def coord1_distance(grid_coord, obs_coords):
     return abs_distance(grid_coord[1:2], obs_coords[:, 1:2])
 
 
-def from_tpu_assim(obj, dist_func=None, operator=None, device="cpu"):
+def from_tpu_assim(obj, dist_func=None, operator=None, device="cuda"):
     """The port of a ``tpu_assim`` ``Lorenz96``, ``RK4Integrator``,
     ``GaspariCohn``, ``GaspariCohnInf``, ``EnsembleState`` or
     ``Observation``, built from its attributes (state and observation
-    arrays as tensors on ``device``).
+    arrays as tensors on ``device``, by default the card; pass
+    ``device="cpu"`` for the CPU).
 
     A JAX callable cannot be carried across: localizations get
     ``dist_func``, by default :func:`coord1_distance`, and observations get

@@ -5,8 +5,15 @@
 // tpu_assim_torch/ops/cuda/letkf.py:_cheb_solve_apply.
 //
 // One warp owns one grid column. Its workspace lies in shared memory; the
-// caller fills zh, spc, meanc and row 0 of w_all, then calls solve_apply,
-// which leaves the column's analysis [ns][k] in spc.
+// caller fills zh (row stride ld), spc, meanc and row 0 of w_all, then calls
+// solve_apply, which leaves the column's analysis [ns][k] in spc.
+//
+// Shared-memory banks: the lanes of a warp read 32 different rows of zh at
+// one perturbation index (the Gram matrix, u), so its row stride ld is odd
+// (k rounded up to odd): 32 consecutive rows then fall in 32 banks. S is
+// exactly symmetric (s[n][m] and s[m][n] are the same products summed in
+// the same order), so the lanes that need row n of S read column n, whose
+// entries are consecutive across lanes. Neither changes a single rounding.
 
 #pragma once
 
@@ -35,17 +42,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Row stride of zh: k rounded up to odd.
+__host__ __device__ inline int zh_ld(int k) { return k | 1; }
+
 // Floats of one column's workspace, rounded up to keep 16-byte alignment.
 __host__ __device__ inline int workspace_floats(int k, int nb, int ns,
                                                 int degree) {
   const int n_ent = (1 + ns) * nb;
-  const int floats = nb * k + nb * nb + ns * k + ns + 4 * n_ent
+  const int floats = nb * zh_ld(k) + nb * nb + ns * k + ns + 4 * n_ent
                      + 4 * (degree + 1);
   return (floats + 3) & ~3;
 }
 
 struct Workspace {
-  float* zh;     // [nb][k] scaled perturbations (in)
+  int ld;        // row stride of zh
+  float* zh;     // [nb][ld] scaled perturbations (in), the first k used
   float* s_mat;  // [nb][nb] Gram matrix
   float* spc;    // [ns][k] state perturbations (in), the analysis (out)
   float* meanc;  // [ns] state mean (in)
@@ -63,8 +74,9 @@ __device__ __forceinline__ Workspace carve(float* base, int k, int nb, int ns,
                                            int degree) {
   const int n_ent = (1 + ns) * nb, dp1 = degree + 1;
   Workspace w;
+  w.ld = zh_ld(k);
   w.zh = base;
-  w.s_mat = w.zh + nb * k;
+  w.s_mat = w.zh + nb * w.ld;
   w.spc = w.s_mat + nb * nb;
   w.meanc = w.spc + ns * k;
   w.w_all = w.meanc + ns;
@@ -92,6 +104,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
                                    int degree, float reg, int lane) {
   const int dp1 = degree + 1;
   const int n_ent = (1 + ns) * nb;
+  const int ld = w.ld;
   const float* zh = w.zh;
   float* s_mat = w.s_mat;
   float* spc = w.spc;
@@ -101,13 +114,13 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
   for (int e = lane; e < nb * nb; e += 32) {
     const int n = e / nb, m = e - n * nb;
     float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += zh[n * k + kk] * zh[m * k + kk];
+    for (int kk = 0; kk < k; ++kk) acc += zh[n * ld + kk] * zh[m * ld + kk];
     s_mat[e] = acc;
   }
   for (int e = lane; e < ns * nb; e += 32) {
     const int i = e / nb, n = e - i * nb;
     float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += zh[n * k + kk] * spc[i * k + kk];
+    for (int kk = 0; kk < k; ++kk) acc += zh[n * ld + kk] * spc[i * k + kk];
     w_all[nb + e] = acc;
   }
   for (int e = lane; e < n_ent; e += 32) {
@@ -120,7 +133,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
   float row_max = 0.0f, diag = 0.0f;
   for (int n = lane; n < nb; n += 32) {
     float r = 0.0f;
-    for (int m = 0; m < nb; ++m) r += fabsf(s_mat[n * nb + m]);
+    for (int m = 0; m < nb; ++m) r += fabsf(s_mat[m * nb + n]);
     row_max = nan_max(row_max, r);
     diag += s_mat[n * nb + n];
   }
@@ -159,7 +172,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
       const int op = e / nb, n = e - op * nb;
       const float* v = b1 + op * nb;
       float sv = 0.0f;
-      for (int m = 0; m < nb; ++m) sv += s_mat[n * nb + m] * v[m];
+      for (int m = 0; m < nb; ++m) sv += s_mat[m * nb + n] * v[m];
       const float c = (op == 0) ? w.c1[mi] : w.c2[mi];
       b0[e] = c * w_all[e] + 2.0f * (a2_sc * sv - b1[e]) - b2[e];
     }
@@ -174,7 +187,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
     const int op = e / nb, n = e - op * nb;
     const float* v = b1 + op * nb;
     float sv = 0.0f;
-    for (int m = 0; m < nb; ++m) sv += s_mat[n * nb + m] * v[m];
+    for (int m = 0; m < nb; ++m) sv += s_mat[m * nb + n] * v[m];
     const float c = (op == 0) ? w.c1[0] : w.c2[0];
     res[e] = c * w_all[e] + (a2_sc * sv - b1[e]) - b2[e];
   }
@@ -190,7 +203,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
     float uq = 0.0f, zv = 0.0f;
     for (int n = 0; n < nb; ++n) {
       uq += u[n] * res[n];
-      zv += zh[n * k + kk] * v[n];
+      zv += zh[n * ld + kk] * v[n];
     }
     spc[f] = w.meanc[i] + uq / reg + alpha * spc[f] - alpha_reg * zv;
   }

@@ -50,17 +50,20 @@ struct Params {
 };
 
 // Rows [rows, g] of a columns-last input, columns col0..col0 + cols - 1,
-// into each column's workspace at float `offset`: consecutive threads take
-// consecutive columns of a row (a ragged last block reads zeros).
+// into each column's workspace at float `offset`, row r at offset + (r /
+// run) ld + r % run (zh's padded rows; run = ld = rows for the others):
+// consecutive threads take consecutive columns of a row (a ragged last
+// block reads zeros).
 __device__ __forceinline__ void load_cols(float* smem, const float* src,
-                                          int rows, int offset,
-                                          const Params& p, int col0) {
+                                          int rows, int offset, int run,
+                                          int ld, const Params& p, int col0) {
   const int cols = p.cols;
   for (int e = threadIdx.x; e < rows * cols; e += cols * 32) {
     const int r = e / cols, c = e - r * cols;
     const int col = col0 + c;
-    smem[static_cast<size_t>(c) * p.per_warp + offset + r] =
-        (col < p.g) ? src[static_cast<size_t>(r) * p.g + col] : 0.0f;
+    smem[static_cast<size_t>(c) * p.per_warp + offset + (r / run) * ld +
+         r % run] = (col < p.g) ? src[static_cast<size_t>(r) * p.g + col]
+                                : 0.0f;
   }
 }
 
@@ -75,10 +78,13 @@ __global__ void nbh_cheb_kernel(const Params p) {
   // the offsets of the workspace's parts within a column's slice
   const cheb::Workspace ws0 = cheb::carve(smem, k, nb, ns, p.degree);
   const int spc_off = static_cast<int>(ws0.spc - smem);
-  load_cols(smem, p.zh, nb * k, static_cast<int>(ws0.zh - smem), p, col0);
-  load_cols(smem, p.yh, nb, static_cast<int>(ws0.w_all - smem), p, col0);
-  load_cols(smem, p.sp, ns * k, spc_off, p, col0);
-  load_cols(smem, p.mean, ns, static_cast<int>(ws0.meanc - smem), p, col0);
+  load_cols(smem, p.zh, nb * k, static_cast<int>(ws0.zh - smem), k, ws0.ld,
+            p, col0);
+  load_cols(smem, p.yh, nb, static_cast<int>(ws0.w_all - smem), nb, nb, p,
+            col0);
+  load_cols(smem, p.sp, ns * k, spc_off, ns * k, ns * k, p, col0);
+  load_cols(smem, p.mean, ns, static_cast<int>(ws0.meanc - smem), ns, ns, p,
+            col0);
   __syncthreads();
 
   const int col = col0 + warp;

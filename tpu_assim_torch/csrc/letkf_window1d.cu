@@ -8,7 +8,8 @@
 // The plain PyTorch twin is tpu_assim_torch/ops/cuda/letkf.py:
 // window_analysis_plain. The solve and weight application (steps 4-7
 // below) are cheb_core.cuh, which the neighborhood kernel
-// letkf_nbh_cheb.cu shares.
+// letkf_nbh_cheb.cu shares; the taper is taper.cuh, shared with the 2-D
+// window kernel letkf_window2d.cu.
 //
 // What bounds it on an H100: latency and instruction issue, not bytes. At
 // the benchmark shape (ens 40, grid 10^4, obs 10^3, window 12, degree 12)
@@ -41,6 +42,7 @@
 #include <math.h>
 
 #include "cheb_core.cuh"
+#include "taper.cuh"
 
 namespace {
 
@@ -67,58 +69,6 @@ struct Params {
   int strict;
   int per_warp;          // floats of shared memory per warp
 };
-
-// Gaspari-Cohn polynomials with the constants of tpu_assim.ops.localization
-// (Python constants rounded to f32).
-__device__ __forceinline__ float gc2_f1(float z) {
-  const float z2 = z * z, z3 = z2 * z, z4 = z2 * z2, z5 = z4 * z;
-  return -0.25f * z5 + 0.5f * z4 + 0.625f * z3 - (5.0f / 3.0f) * z2 + 1.0f;
-}
-__device__ __forceinline__ float gc2_f2(float z) {
-  const float z2 = z * z, z3 = z2 * z, z4 = z2 * z2, z5 = z4 * z;
-  return (1.0f / 12.0f) * z5 - 0.5f * z4 + 0.625f * z3 + (5.0f / 3.0f) * z2
-         - 5.0f * z + 4.0f - (2.0f / 3.0f) / z;
-}
-__device__ __forceinline__ float gci_f1(float z) {
-  const float z2 = z * z, z3 = z2 * z, z4 = z2 * z2, z5 = z4 * z;
-  return -28.0f * z5 / 33.0f + 8.0f * z4 / 11.0f + 20.0f * z3 / 11.0f
-         - 80.0f * z2 / 33.0f + 1.0f;
-}
-__device__ __forceinline__ float gci_f2(float z) {
-  const float z2 = z * z, z4 = z2 * z2, z5 = z4 * z;
-  return 20.0f * z5 / 33.0f - 16.0f * z4 / 11.0f + 100.0f * z2 / 33.0f
-         - 45.0f * z / 11.0f + (51.0f / 22.0f) - 7.0f / (44.0f * z);
-}
-__device__ __forceinline__ float gci_f3(float z) {
-  const float z2 = z * z, z3 = z2 * z, z4 = z2 * z2, z5 = z4 * z;
-  return -4.0f * z5 / 11.0f + 16.0f * z4 / 11.0f - 10.0f * z3 / 11.0f
-         - 100.0f * z2 / 33.0f + 5.0f * z - (61.0f / 22.0f)
-         + 115.0f / (132.0f * z);
-}
-__device__ __forceinline__ float gci_f4(float z) {
-  const float z2 = z * z, z3 = z2 * z, z4 = z2 * z2, z5 = z4 * z;
-  return 4.0f * z5 / 33.0f - 8.0f * z4 / 11.0f + 10.0f * z3 / 11.0f
-         + 80.0f * z2 / 33.0f - 80.0f * z / 11.0f + (64.0f / 11.0f)
-         - 32.0f / (33.0f * z);
-}
-
-// Taper weight of a normalized distance, cut to 0 at or below epsilon. The
-// off-branch argument is clamped so the 1/z terms stay finite.
-__device__ __forceinline__ float taper_weight(float z, int taper, float eps) {
-  float w;
-  if (taper == 0) {
-    const float zs = fmaxf(z, 0.5f);
-    w = (z < 2.0f) ? gc2_f2(zs) : 0.0f;
-    if (z < 1.0f) w = gc2_f1(z);
-  } else {
-    const float zs = fmaxf(z, 0.25f);
-    w = (z < 2.0f) ? gci_f4(zs) : 0.0f;
-    if (z < 1.5f) w = gci_f3(zs);
-    if (z < 1.0f) w = gci_f2(zs);
-    if (z < 0.5f) w = gci_f1(z);
-  }
-  return (w > eps) ? w : 0.0f;
-}
 
 // Number of sorted coordinates v with v <= key (or v < key).
 __device__ int count_below(const float* x, int n, float key, bool inclusive) {
@@ -177,8 +127,8 @@ window1d_kernel(const Params p) {
     const int idx = start + j;
     float w = 0.0f, y = 0.0f;
     if (idx >= 0 && idx < o) {
-      w = taper_weight(fabsf(p.obs_x[idx] - gx) / p.radius, p.taper,
-                       p.epsilon);
+      w = taper::weight(fabsf(p.obs_x[idx] - gx) / p.radius, p.taper,
+                        p.epsilon);
       y = p.innov[idx];
     }
     const float s = sqrtf(w);
@@ -191,7 +141,7 @@ window1d_kernel(const Params p) {
     const int idx = start + j;
     const float v = (idx >= 0 && idx < o)
                         ? p.perts[static_cast<size_t>(kk) * o + idx] : 0.0f;
-    ws.zh[j * k + kk] = v * sw[j];
+    ws.zh[j * ws.ld + kk] = v * sw[j];
   }
   for (int f = lane; f < ns * k; f += 32)
     ws.spc[f] = p.sp[static_cast<size_t>(f) * p.g + col];

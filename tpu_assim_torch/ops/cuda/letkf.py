@@ -10,7 +10,11 @@ helpers they share with the JAX package:
   ``[nb, k, g]``, shared by ``ns`` stacked state slices;
 - K5, :func:`letkf_nbh_analysis_fused` (``csrc/letkf_nbh_ns.cu``): the
   Woodbury solve by Newton-Schulz iterations and apply over neighborhoods
-  gathered as ``[g, nb, k]``.
+  gathered as ``[g, nb, k]``;
+- K6, :func:`window2d_banded` (``csrc/letkf_window2d.cu``): the whole 2-D
+  window analysis over a y-sorted observation table, behind
+  :func:`letkf_window_analysis_fused_2d` and the x-strips of
+  :func:`tpu_assim_torch.analysis.make_strip_letkf_2d`.
 
 K1 does, per grid column: the window of ``nb`` observations around the
 column's rank among the sorted observation coordinates, clamped onto its
@@ -18,12 +22,14 @@ in-support range; the Gaspari-Cohn taper with sqrt-weight scaling; then the
 Chebyshev/Clenshaw evaluation of ``q = X^{-1} yh`` and ``v = f(X) u`` with
 ``X = I + Zh Zh^T / reg`` and ``f(x) = 1/(sqrt(x)(1 + sqrt(x)))``, applied as
 ``mean + <u, q>/reg + alpha sp - (alpha/reg) Zh^T v``. K4 does the last
-step alone, on neighborhoods gathered outside it.
+step alone, on neighborhoods gathered outside it. K6 does K1's work per
+128-column tile of a 2-D grid: the x-window runs over the tile's y-band of
+observations, and the taper is the product of the per-dimension tapers.
 
 Each wrapper runs its plain version (:func:`window_analysis_plain`,
-:func:`nbh_cheb_plain`, :func:`nbh_fused_plain`) for CPU tensors and
-launches its kernel for CUDA tensors. A kernel's library is built at its
-first launch (:mod:`tpu_assim_torch._build`).
+:func:`nbh_cheb_plain`, :func:`nbh_fused_plain`, :func:`window2d_plain`) for
+CPU tensors and launches its kernel for CUDA tensors. A kernel's library is
+built at its first launch (:mod:`tpu_assim_torch._build`).
 """
 
 import ctypes
@@ -46,17 +52,23 @@ __all__ = [
     "letkf_nbh_analysis_cheb",
     "letkf_nbh_analysis_fused",
     "letkf_window_analysis_fused",
+    "letkf_window_analysis_fused_2d",
     "max_in_support_1d",
+    "max_in_support_2d",
     "nbh_cheb_plain",
     "nbh_fused_plain",
     "raise_if_overflow",
     "required_obs_block",
+    "required_obs_block_2d",
     "taper_name",
+    "window2d_banded",
+    "window2d_inputs",
+    "window2d_plain",
     "window_analysis_plain",
 ]
 
 # Launches of each CUDA kernel, counted by its wrapper.
-LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0}
+LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0, "window2d": 0}
 
 _AUTOGRAD_ITEM = "ROADMAP.md Queue 1, the autograd item"
 
@@ -120,6 +132,62 @@ def max_in_support_1d(obs_x, grid_x, radius: float, taper: str = "gc2",
     lo = np.searchsorted(obs_x, grid_x - s, side="right")
     hi = np.searchsorted(obs_x, grid_x + s, side="left")
     return int((hi - lo).max()) if grid_x.size else 0
+
+
+def required_obs_block_2d(obs_y, grid_y, radius_y: float,
+                          tile: int = 128) -> int:
+    """Exact per-tile obs block width of the 2-D window analysis
+    (host-side numpy): the largest population over grid tiles of the tile's
+    y-band ``[min(gy) - 2 ry, max(gy) + 2 ry]``, rounded up to a multiple of
+    8 and at most the observation count. ``obs_y`` need not be sorted."""
+    obs_y = np.sort(np.asarray(obs_y))
+    grid_y = np.asarray(grid_y)
+    o = obs_y.shape[0]
+    g = grid_y.shape[0]
+    n_tiles = -(-g // tile)
+    pad = n_tiles * tile - g
+    if pad:
+        grid_y = np.concatenate([grid_y, np.full(pad, grid_y[-1])])
+    tiles = grid_y.reshape(n_tiles, tile)
+    lo = tiles.min(axis=1) - 2.0 * radius_y
+    hi = tiles.max(axis=1) + 2.0 * radius_y
+    counts = (np.searchsorted(obs_y, hi, side="right")
+              - np.searchsorted(obs_y, lo))
+    width = max(int(counts.max()) if n_tiles else 8, 8)
+    return min(o, -(-width // 8) * 8)
+
+
+def max_in_support_2d(obs_xy, grid_xy, radius_x: float, radius_y: float,
+                      taper: str = "gc2", epsilon: float = 1e-5,
+                      tile: int = 128) -> int:
+    """Max per-column count of y-band observations inside the x-cutoff
+    (host-side numpy, exact): per grid tile the band is ``[min(gy) - 2 ry,
+    max(gy) + 2 ry]``, and each column counts the band's observations with
+    ``|dx| < z* rx``. The 2-D window analysis is exact iff this is <=
+    ``nb``."""
+    obs_xy = np.asarray(obs_xy)
+    grid_xy = np.asarray(grid_xy)
+    g = grid_xy.shape[0]
+    if g == 0 or obs_xy.shape[0] == 0:
+        return 0
+    order = np.argsort(obs_xy[:, 1], kind="stable")
+    oy = obs_xy[order, 1]
+    ox = obs_xy[order, 0]
+    sx = taper_support_z(taper, epsilon) * radius_x
+    n_tiles = -(-g // tile)
+    worst = 0
+    for t in range(n_tiles):
+        gx = grid_xy[t * tile:(t + 1) * tile, 0]
+        gy = grid_xy[t * tile:(t + 1) * tile, 1]
+        b0 = np.searchsorted(oy, gy.min() - 2.0 * radius_y)
+        b1 = np.searchsorted(oy, gy.max() + 2.0 * radius_y, side="right")
+        if b1 <= b0:
+            continue
+        bx = np.sort(ox[b0:b1])
+        lo = np.searchsorted(bx, gx - sx, side="right")
+        hi = np.searchsorted(bx, gx + sx, side="left")
+        worst = max(worst, int((hi - lo).max()))
+    return worst
 
 
 def raise_if_overflow(worst: int, max_obs: int) -> None:
@@ -660,3 +728,355 @@ def letkf_nbh_analysis_fused(
         return nbh_fused_plain(zh, yh, sp, mean, float(reg), ens_size,
                                num_iters)
     return _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters)
+
+
+# -- K6: the 2-D window analysis ----------------------------------------------
+
+# Coordinate sentinel of pad and out-of-band observation slots: sorts after
+# every real coordinate and lies outside every taper support.
+_BIG = float(np.finfo(np.float32).max)
+
+
+def window2d_plain(table, bands, grid, sp, mean, scal, *, width, ens_size,
+                   nb, degree, epsilon, taper, strict, tile=128,
+                   chunk=16384):
+    """Plain PyTorch version of K6, in the dtype of its inputs.
+
+    table [n_rows, k + 1 + n_dims]: per observation slot its k normalized
+    perturbations, its innovation, then its x, y and extra coordinates
+    (slots y-sorted; pad slots carry zeros and +float32.max coordinates).
+    bands [3, n_tiles] int: per grid tile of ``tile`` columns the offset
+    ``off`` of its slot slice ``[off, off + width)`` and its y-band
+    ``[a, b)`` within the slice. grid [n_dims, G], G = n_tiles * tile; sp
+    [ns, k, G]; mean [ns, G]; scal [1 + n_dims]: reg, rx, ry, extra radii
+    -> analysis [ns, k, G].
+
+    Per tile: the slice's x outside the band becomes +float32.max; the slots
+    are ranked by (x, slot); each column's window of ``nb`` ranks starts at
+    ``clip(clip(rank - nb//2, high - nb, low), 0, width - nb)`` with rank,
+    low and high its counts of x <= gx, x <= gx - z* rx and x < gx + z* rx;
+    the taper is the product of the per-dimension tapers, cut at
+    ``epsilon``; ``strict`` (with ``width > nb``) NaN-poisons columns whose
+    counts differ by more than ``nb``; then the Chebyshev solve and apply.
+    Runs ``chunk`` columns at a time, to bound the gathered windows.
+    """
+    dtype, device = table.dtype, table.device
+    k = ens_size
+    n_dims = grid.shape[0]
+    n_tiles = grid.shape[1] // tile
+    reg = scal[0]
+    radii = scal[1:]
+    sup = torch.as_tensor(taper_support_z(taper, epsilon), dtype=dtype,
+                          device=device) * radii[0]
+    nodes, dct = (torch.from_numpy(a).to(dtype=dtype, device=device)
+                  for a in _cheb_nodes_dct(degree))
+    iota = torch.arange(width, device=device)
+    slots = torch.arange(nb, device=device)
+    per = max(chunk // tile, 1)
+    outs = []
+    for t0 in range(0, n_tiles, per):
+        t1 = min(n_tiles, t0 + per)
+        n_t, cols = t1 - t0, slice(t0 * tile, t1 * tile)
+        bd = bands[:, t0:t1].long()
+        blk = table[bd[0][:, None] + iota]                     # [T, W, rows]
+        in_band = (iota >= bd[1][:, None]) & (iota < bd[2][:, None])
+        x = torch.where(in_band, blk[..., k + 1], _BIG)
+        xs, order = torch.sort(x, dim=1, stable=True)         # rank order
+        g = grid[:, cols].reshape(n_dims, n_t, tile)
+        center = torch.searchsorted(xs, g[0].contiguous(), right=True)
+        low = torch.searchsorted(xs, (g[0] - sup).contiguous(), right=True)
+        high = torch.searchsorted(xs, (g[0] + sup).contiguous())
+        start = torch.minimum(torch.maximum(center - nb // 2, high - nb), low)
+        start = torch.clamp(start, min=0, max=width - nb)
+        pos = start[..., None] + slots                        # [T, tile, nb]
+        valid = (pos >= 0) & (pos < width)
+        pos = pos.clamp(0, width - 1).reshape(n_t, tile * nb)
+        slot = torch.gather(order, 1, pos)
+        sel = torch.gather(blk, 1, slot[..., None].expand(-1, -1,
+                                                          blk.shape[2]))
+        sel = sel.reshape(n_t, tile, nb, -1)
+        ox = torch.gather(xs, 1, pos).reshape(n_t, tile, nb)
+        w = (_taper_poly(torch.abs(ox - g[0][..., None]) / radii[0], taper,
+                         0.0)
+             * _taper_poly(torch.abs(sel[..., k + 2] - g[1][..., None])
+                           / radii[1], taper, 0.0))
+        for j in range(n_dims - 2):
+            w = w * _taper_poly(torch.abs(sel[..., k + 3 + j]
+                                          - g[2 + j][..., None])
+                                / radii[2 + j], taper, 0.0)
+        w = torch.where(valid & (w > epsilon), w, 0.0)
+        n_c = n_t * tile
+        sw = safe_sqrt(w).reshape(n_c, nb).T                  # [nb, C]
+        zh = sel[..., :k].reshape(n_c, nb, k).permute(1, 2, 0) * sw[:, None]
+        yh = torch.where(valid, sel[..., k], 0.0).reshape(n_c, nb).T * sw
+        if strict and width > nb:
+            yh = yh + torch.where(high - low > nb, math.nan, 0.0).to(
+                dtype).reshape(1, n_c)
+        outs.append(_cheb_solve_apply(nodes, dct, zh, yh, sp[:, :, cols],
+                                      mean[:, None, cols], reg, ens_size,
+                                      degree))
+    return torch.cat(outs, dim=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _window2d_lib():
+    from tpu_assim_torch._build import load_library
+
+    lib = load_library("letkf_window2d")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.window2d_launch.argtypes = (
+        [ptr] * 9 + [i32] * 11 + [f32] * 2 + [i32, ptr])
+    lib.window2d_launch.restype = i32
+    lib.window2d_smem_bytes.argtypes = [i32] * 6
+    lib.window2d_smem_bytes.restype = ctypes.c_size_t
+    lib.window2d_error_string.argtypes = [i32]
+    lib.window2d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
+                     tile, epsilon, taper, strict):
+    lib = _window2d_lib()
+    n_rows = table.shape[0]
+    n_dims, g = grid.shape
+    ns, k, _ = sp.shape
+    # the smallest block: the band's sort arrays and one column's workspace
+    _check_launchable("window2d", (table, bands, grid, sp, mean, scal),
+                      lib.window2d_smem_bytes(k, nb, ns, degree, width, 1))
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    nodes, dct = _cheb_tables(degree, table.device)
+    out = torch.empty_like(sp)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.window2d_launch(
+            table.data_ptr(), bands.data_ptr(), grid.data_ptr(),
+            sp.data_ptr(), mean.data_ptr(), scal.data_ptr(),
+            nodes.data_ptr(), dct.data_ptr(), out.data_ptr(), k, n_dims,
+            n_rows, g, ns, nb, degree, width, tile, _TAPERS.index(taper),
+            int(bool(strict)), taper_support_z(taper, epsilon),
+            float(epsilon), SMEM_PER_BLOCK, stream)
+    if err != 0:
+        raise RuntimeError("window2d kernel launch failed: "
+                           + lib.window2d_error_string(err).decode())
+    LAUNCHES["window2d"] += 1
+    return out
+
+
+def window2d_banded(
+    table: torch.Tensor,
+    bands: torch.Tensor,
+    grid: torch.Tensor,
+    sp: torch.Tensor,
+    mean: torch.Tensor,
+    scal: torch.Tensor,
+    *,
+    width: int,
+    ens_size: int,
+    nb: int = 48,
+    degree: int = 16,
+    tile: int = 128,
+    epsilon: float = 1e-5,
+    taper: str = "gc2",
+    strict: bool = True,
+) -> torch.Tensor:
+    """The 2-D window analysis over a prepared observation table (the port
+    of the JAX package's ``_window2d_dma_call``): :func:`window2d_plain` for
+    CPU tensors, kernel K6 for CUDA tensors.
+
+    Parameters
+    ----------
+    table : [n_rows, k + 1 + n_dims] f32, one row per observation slot: k
+        perturbations, innovation, x, y, extra coordinates.
+    bands : [3, n_tiles] int32: per tile the slice offset and the band
+        ``[a, b)`` within the slice (see :func:`window2d_plain`). K6
+        NaN-poisons a tile whose slice leaves the table.
+    grid : [n_dims, G] f32 grid coordinates, G = n_tiles * tile.
+    sp / mean : [ns, k, G] / [ns, G] f32 state perturbations and mean.
+    scal : [1 + n_dims] f32: reg = (k - 1)/rho, then the radii.
+    width : slots per slice (the whole table's row count when every tile
+        sees every observation).
+
+    Returns the analysis [ns, k, G].
+    """
+    device = _check_f32_one_device("window2d_banded",
+                                   (table, grid, sp, mean, scal))
+    if taper not in _TAPERS:
+        raise ValueError(f"unknown taper {taper!r}; use 'gc2' or 'gcinf'")
+    n_dims, g = grid.shape
+    ns = sp.shape[0]
+    k = ens_size
+    if (n_dims < 2 or g % tile or width < 1 or nb < 1 or degree < 1
+            or table.shape[1:] != (k + 1 + n_dims,)
+            or bands.shape != (3, g // tile) or bands.device != device
+            or bands.dtype != torch.int32 or sp.shape != (ns, k, g)
+            or mean.shape != (ns, g) or scal.shape != (1 + n_dims,)):
+        raise ValueError(
+            f"shapes do not fit: table {tuple(table.shape)}, bands "
+            f"{tuple(bands.shape)} {bands.dtype}, grid {tuple(grid.shape)}, "
+            f"sp {tuple(sp.shape)}, mean {tuple(mean.shape)}, scal "
+            f"{tuple(scal.shape)}, ens_size {k}, width {width}, tile {tile}")
+    if device.type == "cpu":
+        return window2d_plain(table, bands, grid, sp, mean, scal,
+                              width=width, ens_size=k, nb=nb, degree=degree,
+                              epsilon=epsilon, taper=taper, strict=strict,
+                              tile=tile)
+    return _launch_window2d(table, bands, grid, sp, mean, scal, width, nb,
+                            degree, tile, epsilon, taper, strict)
+
+
+def letkf_window_analysis_fused_2d(
+    perts: torch.Tensor,
+    innov: torch.Tensor,
+    obs_xy: torch.Tensor,
+    grid_xy: torch.Tensor,
+    sp: torch.Tensor,
+    mean: torch.Tensor,
+    reg,
+    radius_x: float,
+    radius_y: float,
+    ens_size: int,
+    obs_block: int,
+    nb: int = 48,
+    degree: int = 16,
+    tile: int = 128,
+    epsilon: float = 1e-5,
+    taper: str = "gc2",
+    strict: bool = True,
+    extra_radii: tuple = (),
+) -> torch.Tensor:
+    """The complete 2-D-window LETKF analysis: the plain PyTorch version for
+    CPU tensors, kernel K6 for CUDA tensors (one launch).
+
+    Parameters
+    ----------
+    perts : [k, o] R^{-1/2}-normalized obs-space perturbations.
+    innov : [o] normalized innovations.
+    obs_xy : [o, d] obs (x, y, ...) coordinates in any order (sorted by y
+        here, stably); d = 2 + len(extra_radii).
+    grid_xy : [g, d] grid coordinates; their order affects the work (a
+        row-major grid gives thin per-tile y-bands), never the result.
+    sp / mean : state perturbations / mean, [k, g] or [ns, k, g] (mean [g]
+        or [ns, g]).
+    reg : number (or scalar tensor) (K-1)/rho; radius_x / radius_y : the
+        per-dimension Gaspari-Cohn radii (the taper is their product).
+    obs_block : per-tile y-band width, required
+        (:func:`required_obs_block_2d` is exact). With ``obs_block >= o``
+        every tile takes the whole table; otherwise a slice of
+        ``obs_block + 8`` slots around its band, and a tile whose band holds
+        more than ``obs_block`` observations is NaN-poisoned.
+    nb : x-window size inside the band; exact iff no column has more than
+        nb band observations within its x-cutoff (``max_in_support_2d``).
+        ``strict=True`` NaN-poisons any column violating that;
+        ``strict=False`` accepts the truncation to the x-nearest.
+    extra_radii : radii of coordinate dims >= 3: product taper factors
+        only; the band and window stay on (y, x).
+
+    perts, innov, sp and mean are f32 on one device; the coordinates may be
+    f32 or f64 (sorted in their own precision, then rounded to f32). The
+    JAX signature's ``sel_prec`` and ``interpret`` select TPU code paths
+    and have no counterpart. Returns the analysis [k, g] (or [ns, k, g]).
+    """
+    n_dims = 2 + len(extra_radii)
+    if obs_xy.shape[1] < n_dims or grid_xy.shape[1] < n_dims:
+        raise ValueError(
+            f"need {n_dims} coordinate columns for 2 windowed + "
+            f"{len(extra_radii)} extra taper dims; got obs "
+            f"{tuple(obs_xy.shape)}, grid {tuple(grid_xy.shape)}")
+    if obs_block <= 0:
+        raise ValueError(
+            "obs_block is required for the 2-D window analysis; compute it "
+            "with required_obs_block_2d(obs_y, grid_y, radius_y, tile)")
+    device = _check_f32_one_device("letkf_window_analysis_fused_2d",
+                                   (perts, innov, sp, mean))
+    if obs_xy.device != device or grid_xy.device != device:
+        raise ValueError("all inputs must be on one device")
+    multi = sp.ndim == 3
+    sp3 = sp if multi else sp[None]
+    mean2 = mean if multi else mean[None]
+    k, o = perts.shape
+    ns, _, g = sp3.shape
+    if (k != ens_size or o < 1 or innov.shape != (o,)
+            or obs_xy.shape[0] != o or grid_xy.shape[0] != g
+            or sp3.shape != (ns, k, g) or mean2.shape != (ns, g)):
+        raise ValueError(
+            f"shapes do not fit: perts {tuple(perts.shape)}, innov "
+            f"{tuple(innov.shape)}, obs_xy {tuple(obs_xy.shape)}, grid_xy "
+            f"{tuple(grid_xy.shape)}, sp {tuple(sp.shape)}, mean "
+            f"{tuple(mean.shape)}, ens_size {ens_size}")
+    args, width = window2d_inputs(perts, innov, obs_xy, grid_xy, sp3, mean2,
+                                  reg, radius_x, radius_y, obs_block, tile,
+                                  extra_radii)
+    out = window2d_banded(*args, width=width, ens_size=k, nb=nb,
+                          degree=degree, tile=tile, epsilon=epsilon,
+                          taper=taper, strict=strict)[:, :, :g]
+    return out if multi else out[0]
+
+
+def window2d_inputs(perts, innov, obs_xy, grid_xy, sp, mean, reg, radius_x,
+                    radius_y, obs_block, tile=128, extra_radii=()):
+    """The prologue of :func:`letkf_window_analysis_fused_2d`: the stable
+    y-sort of the observations, the grid padded to whole tiles (edge
+    coordinates, zero state), the table, each tile's slice and band, and
+    the band-overflow NaN poison of the mean.
+
+    ``sp [ns, k, g]``, ``mean [ns, g]``; the rest as the wrapper takes
+    them. Returns ``((table, bands, grid, sp, mean, scal), width)``: the
+    inputs of :func:`window2d_banded` (and :func:`window2d_plain`) and the
+    slice width.
+    """
+    f32 = torch.float32
+    device = perts.device
+    k, o = perts.shape
+    g = grid_xy.shape[0]
+    n_dims = 2 + len(extra_radii)
+    sp3, mean2 = sp, mean
+    n_tiles = -(-g // tile)
+    pad = n_tiles * tile - g
+    if pad:
+        grid_xy = torch.cat([grid_xy, grid_xy[-1:].expand(pad, -1)])
+        sp3 = torch.nn.functional.pad(sp3, (0, pad))
+        mean2 = torch.nn.functional.pad(mean2, (0, pad))
+    order = torch.sort(obs_xy[:, 1], stable=True).indices
+    coords = obs_xy[order, :n_dims].to(f32)                    # [o, d]
+    gy = grid_xy[:, 1].to(f32)
+    grid = grid_xy[:, :n_dims].to(f32).T.contiguous()          # [d, G]
+    table = torch.cat([perts[:, order].T, innov[order, None], coords], dim=1)
+    o_b = min(obs_block, o)
+    if o_b >= o:
+        # every tile takes the whole table, unmasked
+        width = o
+        bands = torch.tensor([0, 0, o], dtype=torch.int32,
+                             device=device)[:, None].expand(3, n_tiles)
+    else:
+        ty = gy.reshape(n_tiles, tile)
+        oy = coords[:, 1].contiguous()
+        iy0 = torch.clamp(torch.searchsorted(
+            oy, (ty.amin(dim=1) - 2.0 * radius_y).contiguous()), 0, o - 1)
+        iy1 = torch.searchsorted(
+            oy, (ty.amax(dim=1) + 2.0 * radius_y).contiguous(), right=True)
+        # a band with more observations than the block would lose some:
+        # NaN-poison its tile
+        bad_tile = (iy1 - iy0) > o_b
+        mean2 = mean2 + torch.where(bad_tile, math.nan, 0.0).to(
+            f32).repeat_interleave(tile)[None, :]
+        # the slices: o_b + 8 slots from an 8-aligned offset below the band
+        # start (the offsets of the JAX package, which decide the slice
+        # width and so the window clamp); pad slots past the table's end
+        width = o_b + 8
+        o_pad = -(-o // 8) * 8
+        off = torch.clamp(iy0, max=max(o_pad - width, 0))
+        off = off - off % 8
+        bands = torch.stack([off, iy0 - off,
+                             torch.clamp(iy1 - off, 0, width)]).to(torch.int32)
+        n_rows = max(o_pad, width)
+        pad_rows = torch.zeros(n_rows - o, table.shape[1], dtype=f32,
+                               device=device)
+        pad_rows[:, k + 1:] = _BIG
+        table = torch.cat([table, pad_rows])
+    scal = torch.cat([
+        torch.as_tensor(reg, dtype=f32, device=device).reshape(1),
+        torch.tensor((radius_x, radius_y) + tuple(extra_radii), dtype=f32,
+                     device=device)])
+    return ((table.contiguous(), bands.contiguous(), grid, sp3.contiguous(),
+             mean2.contiguous(), scal), width)

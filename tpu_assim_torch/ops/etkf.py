@@ -154,7 +154,8 @@ def letkf_weights_nbh(
     method : ``"eigh"``, ``"newton"`` or ``"woodbury"`` (the Newton-Schulz
         solve on the nb x nb dual matrix).
 
-    Returns ``[g, k, k]`` per-column weight matrices.
+    Returns ``[g, k, k]`` per-column weight matrices; NaN in a column whose
+    weights hold the strict selection's NaN poison.
     """
     normed_obs = normed_obs.reshape(-1)
     ens_size = normed_perts.shape[-2]
@@ -163,11 +164,18 @@ def letkf_weights_nbh(
     if method == "woodbury":
         return _letkf_weights_nbh_woodbury(z, y, nbh_weights, ens_size,
                                            inf_factor, newton_iters)
+    if method == "eigh":
+        # LAPACK raises on a NaN matrix: a poisoned column solves with zero
+        # weights and is NaN-ed after, as the JAX package's eigh leaves it
+        poisoned = torch.isnan(nbh_weights).any(-1)[:, None, None]
+        nbh_weights = torch.where(poisoned[..., 0], 0.0, nbh_weights)
     kernel_perts = torch.einsum("kgn,gn,mgn->gkm", z, nbh_weights, z)
     kernel_obs = torch.einsum("kgn,gn,gn->gk", z, nbh_weights, y)[..., None]
     w_mean, w_perts, _ = etkf_weights_from_gram(
         kernel_perts, kernel_obs, ens_size, inf_factor, method=method,
         newton_iters=newton_iters)
+    if method == "eigh":
+        return torch.where(poisoned, torch.nan, w_mean + w_perts)
     return w_mean + w_perts
 
 
