@@ -3,9 +3,9 @@ Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
 Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
 IEnKS smoother (Jacobi SVD + fused RK4), the neighborhood solvers (cheb,
-pallas), the LETKF class API and the 2-D LETKF (fused2d and its x-strips)
-at the reference benchmark shapes, checks them against f64 oracles, and
-times the kernels.
+pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips) and
+the localized kernelized ETKF (two-sided Jacobi eigh) at the reference
+benchmark shapes, checks them against f64 oracles, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -29,12 +29,20 @@ Phases (one line each; any failure exits non-zero):
  18 fused2d at config 7            class API (auto strips; smoother at
     against f64 eigh               config 7) against f64 eigh
  20 times of K6 and of the 2-D analyses
+ 21 K7 (two-sided Jacobi eigh)     23 the class API: LKETKF.assimilate
+    against plain on [10^4, 40,       (twosided: 3 K7 launches), a cheb
+    40] batches of seven kinds        smoother, KETKF (config 4), and
+ 22 bench config 11 (LKETKF,          MultiplicativeInflation around
+    Gauss l=2, window): eigh via      LKETKF, against f64
+    K3, via K7, Tanh via K7, cheb  24 times of K7 and of the config-11
+    against f64                       analyses; a torch.profiler window
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -55,20 +63,25 @@ from tpu_assim_torch.analysis import (
     make_lienks_step,
     make_strip_letkf_2d,
 )
-from tpu_assim_torch import LETKF, EnsembleState, Observation
+from tpu_assim_torch import KETKF, LETKF, LKETKF, EnsembleState, Observation
 from tpu_assim_torch.convert import coord1_distance
+from tpu_assim_torch.interface import lketkf as lk
 from tpu_assim_torch.models import Lorenz96, RK4Integrator
 from tpu_assim_torch.obs_ops import IdentityOperator
 from tpu_assim_torch.models import cuda_forecast as k2
 from tpu_assim_torch.ops import ienks
+from tpu_assim_torch.ops.cuda import jacobi as k7
 from tpu_assim_torch.ops.cuda import letkf as k1
 from tpu_assim_torch.ops.cuda import svd as k3
-from tpu_assim_torch.ops.linalg import rev_svd, set_jacobi_dispatch
+from tpu_assim_torch.ops.kernels import GaussKernel, TanhKernel
+from tpu_assim_torch.ops.ketkf import center_gram
+from tpu_assim_torch.ops.linalg import rev_evd, rev_svd, set_jacobi_dispatch
 from tpu_assim_torch.ops.localization import (
     GaspariCohn,
     neighborhood_select_window,
     safe_sqrt_keep_nan,
 )
+from tpu_assim_torch.transform import MultiplicativeInflation
 
 SEED = 42
 TOL = 1e-5          # f32 budget, relative to max|reference|
@@ -81,6 +94,8 @@ PALLAS_TOL = 2e-4   # method="pallas" against the f64 oracle: the JAX
                     # package's bound for K5 (tests/test_etkf_core.py:363)
 NS_ITERS = 25       # make_letkf_analysis's default newton_iters
 R2 = 4.0            # GC radius in x and in y of bench configs 7 and 8
+L11 = 2.0           # Gauss kernel lengthscale of bench configs 4 and 11
+SWEEPS = 7          # K7's sweep cap in eigh_psd's twosided dispatch
 # The least time of a kernel's work on an H100 SXM (its published peak
 # rates): its bytes at the HBM rate, its FLOPs at the f32 rate outside the
 # tensor cores (the kernels compute in f32 without them).
@@ -251,12 +266,13 @@ def counted(fn, *args):
     """``fn(*args)`` with every kernel's launch count set to 0 just before;
     returns the result and the counts read just after, those of 0
     left out."""
-    for table in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES):
+    tables = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k7.LAUNCHES)
+    for table in tables:
         for name in table:
             table[name] = 0
     out = fn(*args)
     torch.cuda.synchronize()
-    counts = {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES}
+    counts = {n: c for table in tables for n, c in table.items()}
     return out, {n: c for n, c in counts.items() if c}
 
 
@@ -701,6 +717,7 @@ def main():
 
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
     window2d_phases(dev, gpu, kinds, launches)
+    kernelized_phases(dev, gpu, loc, w, kinds, launches)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -715,6 +732,8 @@ def main():
                    "tpu_assim/ops/pallas/letkf.py:322"),
         "window2d": ("tpu_assim_torch/csrc/letkf_window2d.cu",
                      "tpu_assim/ops/pallas/letkf.py:1353"),
+        "eigh_jacobi": ("tpu_assim_torch/csrc/eigh_jacobi.cu",
+                        "tpu_assim/ops/pallas/jacobi.py:146"),
     }
     print(gpu)
     print(json.dumps({"kernels": [
@@ -1175,6 +1194,370 @@ def window2d_phases(dev, gpu, kinds, launches):
     log(20, "torch.profiler, 5 calls each: " + "; ".join(notes)
         + f"; geometry cache hit at config 8 {statistics.median(hits)!r} ms "
         f"on the host [{gpu}]")
+
+
+def twosided(fn, *args):
+    """``fn(*args)`` with ``TPU_ASSIM_EIGH_KERNEL=twosided``, restored
+    after."""
+    old = os.environ.get("TPU_ASSIM_EIGH_KERNEL")
+    os.environ["TPU_ASSIM_EIGH_KERNEL"] = "twosided"
+    try:
+        return fn(*args)
+    finally:
+        if old is None:
+            del os.environ["TPU_ASSIM_EIGH_KERNEL"]
+        else:
+            os.environ["TPU_ASSIM_EIGH_KERNEL"] = old
+
+
+def config11_inputs(w, dev, dtype):
+    """bench.py config 11's inputs from the headline workload ``w``:
+    normalized obs-space perturbations [40, o] and innovations [o], the
+    grid and obs info rows, and the state [40, g], in ``dtype`` on
+    ``dev``."""
+    wt = [torch.as_tensor(x, device=dev) for x in w]
+    wt = [t.to(dtype) if t.is_floating_point() else t for t in wt]
+    perts, innov = _normalized_obs_space(wt[0][:, wt[3].long()], wt[1], wt[2])
+    return perts, innov, _with_time(wt[4]), _with_time(wt[5]), wt[0]
+
+
+def analysis11(loc, nb, kernel, inputs):
+    """The config-11 analysis [40, g]: the LKETKF weights over strict
+    window neighborhoods of ``nb`` observations (one eigh of a [g, 40, 40]
+    batch), applied to the state, as bench.py's step11."""
+    perts, innov, gi, oi, state = inputs
+    weights = lk._lketkf_solve(loc, None, "eigh", NS_ITERS, nb, "window",
+                               True, kernel, perts, innov, gi, oi, INF)
+    mean = state.mean(0)
+    return mean + torch.einsum("kg,gkm->mg", state - mean, weights)
+
+
+def cheb11(loc, nb, kernel, inputs, degree=10):
+    """The config-11 analysis [40, g] by the fused Chebyshev solve, as
+    bench.py's step11c."""
+    perts, innov, gi, oi, state = inputs
+    return lk._lketkf_cheb_analysis(loc, None, nb, "window", True, degree,
+                                    kernel, perts, innov, gi, oi, INF,
+                                    state[None, None])[0, 0]
+
+
+def config11_grams(loc, nb, kernel, inputs):
+    """The double-centred kernel Grams [g, 40, 40] that the config-11
+    analysis hands to eigh_psd, and their centred obs vectors [g, 40, 1]."""
+    perts, innov, gi, oi, _ = inputs
+    idx, sqrt_w = lk._sqrt_taper(loc, nb, "window", True, gi, oi,
+                                 perts.dtype)
+    scaled = lk._scaled(perts, idx, sqrt_w)
+    scaled_obs = lk._scaled(innov[None], idx, sqrt_w)
+    gram, qc = center_gram(kernel(scaled, scaled), kernel(scaled, scaled_obs))
+    return gram.contiguous(), qc
+
+
+def analysis_from_evd(qc, ev, vec, state):
+    """The config-11 analysis [40, g] from an eigendecomposition ``(ev,
+    vec)`` of its Grams, in any order, composed as the eigh route of
+    ``ops/etkf.py:etkf_weights_from_gram`` composes it."""
+    k = state.shape[0]
+    h = torch.clamp(ev, min=0.0) + (k - 1) / INF
+    weights = (rev_evd(1.0 / h, vec) @ qc
+               + (k - 1) ** 0.5 * rev_evd(1.0 / torch.sqrt(h), vec))
+    mean = state.mean(0)
+    return mean + torch.einsum("kg,gkm->mg", state - mean, weights)
+
+
+def with_spectrum(rng, b, evals):
+    """``b`` random symmetric matrices with the spectrum ``evals``, f32."""
+    k = len(evals)
+    q = np.linalg.qr(rng.normal(size=(b, k, k)))[0]
+    return np.einsum("bik,k,bjk->bij", q, np.asarray(evals), q).astype(
+        np.float32)
+
+
+def eigh_factors(a, ev, vec):
+    """Reconstruction (relative to max|A|) and orthogonality of an
+    eigendecomposition, over the matrices without NaN."""
+    fin = torch.isfinite(ev).all(-1)
+    a, ev, vec = a[fin], ev[fin], vec[fin]
+    rec = float((torch.einsum("bik,bk,bjk->bij", vec, ev, vec) - a).abs().max()
+                / a.abs().max())
+    eye = torch.eye(a.shape[-1], device=a.device)
+    return rec, float((vec.mT @ vec - eye).abs().max())
+
+
+def eigh_vs_plain(a, label, factors=True):
+    """K7 through ``eigh_jacobi`` (one counted launch) against its plain
+    version on one batch: identical NaN entries in the eigenvalues,
+    eigenvalues within TOL of max|lambda|; on the matrices without NaN the
+    reconstruction and the orthogonality, checked against FACTOR_TOL where
+    ``factors``. Returns a dict of the figures and the kernel's output."""
+    before = k7.LAUNCHES["eigh_jacobi"]
+    ev, vec, run = k7.eigh_jacobi(a, SWEEPS, with_sweeps=True)
+    torch.cuda.synchronize()
+    check(k7.LAUNCHES["eigh_jacobi"] == before + 1,
+          f"{label}: K7 launches {k7.LAUNCHES['eigh_jacobi'] - before}")
+    ev_p, vec_p, run_p = k7.eigh_jacobi_plain(a, SWEEPS, with_sweeps=True)
+    err, rel = compare(ev, ev_p, f"{label}: eigenvalues")
+    fin = torch.isfinite(ev).all(-1)
+    rec, orth = eigh_factors(a, ev, vec)
+    if factors:
+        check(rec <= FACTOR_TOL and orth <= FACTOR_TOL,
+              f"{label}: reconstruction {rec!r}, orthogonality {orth!r}")
+    return {"err": err, "rel": rel, "rec": rec, "orth": orth,
+            "sweeps": int(torch.clamp(run, max=SWEEPS).max()),
+            "capped": int((run > SWEEPS).sum()),
+            "same_sweeps": bool(torch.equal(run, run_p)),
+            "vec_diff": float((vec[fin] - vec_p[fin]).abs().max()),
+            "out": (ev, vec, run)}
+
+
+def eigh_note(label, f):
+    return (f"{label}: eigenvalues {f['err']!r} (rel {f['rel']!r}), "
+            f"reconstruction {f['rec']!r}, orthogonality {f['orth']!r}, "
+            f"sweeps {f['sweeps']}, {f['capped']} still rotating at the cap; "
+            f"vs plain: sweeps identical {f['same_sweeps']}, eigenvectors "
+            f"{f['vec_diff']!r}")
+
+
+def freezes(kp):
+    """K7's freeze test and the JAX kernel's, as (name, multiple of eps)."""
+    return (("8 eps", k7.FREEZE), ("8 Kp eps", k7.FREEZE * kp))
+
+
+def freeze_note(a):
+    """K7 on one batch at its own freeze test and at the JAX kernel's: mean
+    sweeps run, matrices still rotating at the cap, time per launch and
+    reconstruction."""
+    a = k7._pad_odd(a).contiguous()
+    out = []
+    for name, freeze in freezes(a.shape[-1]):
+        ev, vec, run = k7._launch_eigh(a, SWEEPS, freeze)
+        ms = event_ms(lambda: k7._launch_eigh(a, SWEEPS, freeze))
+        rec, _ = eigh_factors(a, ev, vec)
+        mean = float(torch.clamp(run, max=SWEEPS).float().mean())
+        out.append(f"at {name} {mean!r} sweeps, {int((run > SWEEPS).sum())} "
+                   f"capped, {ms!r} ms, reconstruction {rec!r}")
+    return "freeze test " + " / ".join(out)
+
+
+def kernelized_phases(dev, gpu, loc, w, kinds, launches):
+    """Phases 21-24: K7 against its plain version on [10^4, 40, 40]
+    batches, bench config 11 through K3, K7 and cheb and the class API
+    against f64 oracles, and times."""
+    g = w[0].shape[1]
+    nb = exact_nb(k1.max_in_support_1d(w[5][:, 0], w[4][:, 0], RADIUS))
+    gauss, tanh = GaussKernel(L11), TanhKernel()
+    x32 = config11_inputs(w, dev, torch.float32)
+
+    # -- 21. K7 against its plain version ----------------------------------
+    rng = np.random.RandomState(SEED + 8)
+
+    def on_card(x):
+        return torch.as_tensor(x, device=dev)
+
+    z = on_card(rng.normal(size=(g, 40, 40)).astype(np.float32)) / 40 ** 0.5
+    ties = np.linspace(0.5, 4.0, 20)
+    grams, _ = config11_grams(loc, nb, gauss, x32)
+    # The cap of 7 sweeps stops the Gauss Grams (a graded spectrum) and the
+    # sigma-span batch short of FACTOR_TOL, as it stops the JAX kernel.
+    # Their figures at the cap are printed, not checked: that acceptance
+    # criterion is not met (PERF.md). Their factors are checked at 12
+    # sweeps instead, where the kernel converges.
+    batches = [
+        ("config-11 Gauss Grams", grams, False),
+        ("random SPD", (z @ z.mT).contiguous(), True),
+        ("24-fold cluster", on_card(with_spectrum(
+            rng, g, np.r_[np.full(24, 2.5), np.linspace(0.1, 9.0, 16)])),
+         True),
+        ("sigma span 1e4", on_card(with_spectrum(
+            rng, g, np.logspace(0, -4, 40))), False),
+        ("+-lambda ties", on_card(with_spectrum(rng, g, np.r_[-ties, ties])),
+         True),
+        ("K=39 SPD", (z[:, :39, :] @ z[:, :39, :].mT).contiguous(), True),
+    ]
+    notes, err_k7 = [], 0.0
+    for label, a, factors in batches:
+        f = eigh_vs_plain(a, label, factors)
+        err_k7 = max(err_k7, f["err"])
+        if not factors:
+            ev12, vec12 = k7.eigh_jacobi(a, 12)
+            rec12, orth12 = eigh_factors(a, ev12, vec12)
+            check(rec12 <= FACTOR_TOL and orth12 <= FACTOR_TOL,
+                  f"{label}, 12 sweeps: reconstruction {rec12!r}, "
+                  f"orthogonality {orth12!r}")
+            f["sweeps"] = (f"{f['sweeps']} (factors at the cap over "
+                           f"{FACTOR_TOL}: {f['rec'] > FACTOR_TOL}; at 12 "
+                           f"sweeps: reconstruction {rec12!r}, orthogonality "
+                           f"{orth12!r})")
+        if label == "+-lambda ties":
+            e, rel = compare(f["out"][0], torch.as_tensor(
+                np.sort(np.r_[-ties, ties]), dtype=torch.float32,
+                device=dev).expand(g, 40), "+-lambda ties: spectrum")
+            notes.append(eigh_note(label, f)
+                         + f", against the exact spectrum {e!r}")
+        else:
+            notes.append(eigh_note(label, f))
+        if label == "config-11 Gauss Grams":
+            gram_run = f["out"][2]
+            lapack = torch.linalg.eigvalsh(a.double().cpu()).to(dev)
+            rel7, rel12 = (float((ev.double() - lapack).abs().max()
+                                 / lapack.abs().max())
+                           for ev in (f["out"][0], ev12))
+            notes[-1] += (f", eigenvalues against f64 LAPACK (not checked) "
+                          f"{rel7!r} at the cap, {rel12!r} at 12 sweeps")
+        notes[-1] += "; " + freeze_note(a)
+    nan_batch = on_card(with_spectrum(rng, 512, np.linspace(-3.0, 5.0, 40)))
+    nan_batch[3, 5, 7] = nan_batch[3, 7, 5] = float("nan")
+    f = eigh_vs_plain(nan_batch, "NaN batch")
+    bad = torch.isnan(f["out"][0]).any(-1)
+    check(bool(bad[3]) and int(bad.sum()) == 1,
+          f"K7: the NaN spread to {int(bad.sum())} matrices")
+    notes.append(f"NaN batch [512]: NaN confined to its matrix, the other "
+                 f"511 {f['err']!r} from plain")
+    kinds["eigh_jacobi"] = {"max_abs_err": err_k7}
+    log(21, f"K7 eigh_jacobi against plain, [{g}, 40, 40] f32, cap "
+        f"{SWEEPS}: " + "; ".join(notes))
+
+    # -- 22. config 11 at full width ---------------------------------------
+    t0 = time.perf_counter()
+    x64 = config11_inputs(w, "cpu", torch.float64)
+    oracle = {name: analysis11(loc, nb, kern, x64)
+              for name, kern in (("gauss", gauss), ("tanh", tanh))}
+    cheb64 = cheb11(loc, nb, gauss, x64)
+    s_oracle = time.perf_counter() - t0
+    runs = [("eigh via K3", analysis11, gauss, "gauss", {"svd_jacobi": 1},
+             False),
+            ("eigh via K7", analysis11, gauss, "gauss", {"eigh_jacobi": 1},
+             True),
+            ("Tanh eigh via K7", analysis11, tanh, "tanh", {"eigh_jacobi": 1},
+             True)]
+    notes = []
+    for label, fn, kern, ref, expected, two in runs:
+        args = (fn, loc, nb, kern, x32)
+        out, counts = (counted(twosided, *args) if two
+                       else counted(*args))
+        check(counts == expected, f"config 11 {label}: launches {counts}")
+        if label == "eigh via K7":
+            launches["eigh_jacobi"] = counts["eigh_jacobi"]
+        _, rel = compare(out, oracle[ref].to(dev), f"config 11 {label}")
+        notes.append(f"{label} ({counts}) {rel!r}")
+    # why K7 freezes at 8 eps, not at the JAX kernel's 8 Kp eps: the Tanh
+    # analysis composed from K7's factors of its Grams at each threshold
+    # (not checked: the first is the route above)
+    tgram, tq = config11_grams(loc, nb, tanh, x32)
+    for name, freeze in freezes(tgram.shape[-1]):
+        ev, vec, _ = k7._launch_eigh(tgram, SWEEPS, freeze)
+        out = analysis_from_evd(tq, ev, vec, x32[4])
+        rel = float((out.double().cpu() - oracle["tanh"]).abs().max()
+                    / oracle["tanh"].abs().max())
+        notes.append(f"Tanh from K7's factors at {name} {rel!r}")
+    out, counts = counted(cheb11, loc, nb, gauss, x32)
+    check(counts == {}, f"config 11 cheb launched {counts}")
+    _, rel = compare(out, cheb64.to(dev), "config 11 cheb vs its f64 run")
+    trunc = float((out.double().cpu() - oracle["gauss"]).abs().max()
+                  / oracle["gauss"].abs().max())
+    notes.append(f"cheb degree 10 against its f64 run {rel!r}, against the "
+                 f"exact f64 analysis {trunc!r} (truncation)")
+    log(22, f"bench config 11 (ens 40, grid {g}, obs {w[1].shape[0]}, GC "
+        f"r={RADIUS}, window nb {nb}, Gauss l={L11}, rho {INF}) against f64 "
+        f"on the CPU ({s_oracle:.1f} s): " + "; ".join(notes)
+        + f" (budget {TOL})")
+
+    # -- 23. the class API -------------------------------------------------
+    state, obs = class_api_inputs(x32[4][None, None], w, 1)
+    obs = obs.replace(observations=torch.as_tensor(w[1], device=dev)[None])
+    state64, obs64 = class_api_inputs(x64[4][None, None], w, 1)
+    obs64 = obs64.replace(observations=torch.as_tensor(
+        w[1], dtype=torch.float64)[None])
+    notes = []
+    alg = LKETKF(loc, gauss, INF, max_obs=nb, selection="window")
+    n_chunks = -(-g // alg.chunksize)   # 3 at the chunksize of 4096
+    out, counts = counted(twosided, alg.assimilate, state, obs)
+    check(counts == {"eigh_jacobi": n_chunks},
+          f"class LKETKF launches {counts}")
+    ref = LKETKF(loc, gauss, INF, max_obs=nb, selection="window").assimilate(
+        state64, obs64)
+    _, rel = compare(out.data, ref.data.to(dev), "class LKETKF vs f64")
+    notes.append(f"LKETKF.assimilate [1, 1, 40, {g}] twosided, chunks of "
+                 f"{alg.chunksize} ({counts}) {rel!r}")
+    rnd = np.random.RandomState(SEED + 9)
+    data = torch.as_tensor(rnd.normal(size=(2, 3, 40, g)).astype(np.float32),
+                           device=dev)
+    state_s, obs_s = class_api_inputs(data, w, 3)
+    state_s64, obs_s64 = class_api_inputs(data.double().cpu(), w, 3)
+    stacked_x = np.sort(np.tile(w[5][:, 0], 3))
+    nb_s = exact_nb(k1.max_in_support_1d(stacked_x, w[4][:, 0], RADIUS))
+    alg = LKETKF(loc, gauss, INF, smoother=True, method="cheb", max_obs=nb_s)
+    ens_obs, filtered = alg._apply_obs_operator(state_s, [obs_s])
+    _, perts_s, info_s = alg._get_obs_space_variables(ens_obs, filtered)
+    degree = alg._auto_cheb_degree(perts_s, state_s.grid_info(), info_s)
+    out, counts = counted(alg.assimilate, state_s, obs_s)
+    ref = LKETKF(loc, gauss, INF, smoother=True, method="cheb", max_obs=nb_s,
+                 cheb_degree=degree).assimilate(state_s64, obs_s64)
+    _, rel = compare(out.data, ref.data.to(dev), "class LKETKF smoother cheb")
+    notes.append(f"smoother [2, 3, 40, {g}] cheb (topk nb {nb_s}, auto "
+                 f"degree {degree}, {counts or 'no kernel'}) against its f64 "
+                 f"run {rel!r}")
+    out, counts = counted(KETKF(gauss, INF).assimilate, state, obs)
+    ref = KETKF(gauss, INF).assimilate(state64, obs64)
+    _, rel = compare(out.data, ref.data.to(dev), "class KETKF config 4")
+    notes.append(f"KETKF.assimilate (config 4, global) {rel!r}")
+    pre, post = [MultiplicativeInflation(1.2)], [MultiplicativeInflation(1.05)]
+    alg = LKETKF(loc, gauss, INF, max_obs=nb, selection="window",
+                 pre_transform=pre, post_transform=post)
+    out, counts = counted(twosided, alg.assimilate, state, obs)
+    check(counts == {"eigh_jacobi": n_chunks},
+          f"class inflation launches {counts}")
+    ref = LKETKF(loc, gauss, INF, max_obs=nb, selection="window",
+                 pre_transform=pre, post_transform=post).assimilate(
+        state64, obs64)
+    _, rel = compare(out.data, ref.data.to(dev), "class inflation vs f64")
+    notes.append(f"LKETKF with MultiplicativeInflation 1.2 pre, 1.05 post "
+                 f"({counts}) {rel!r}")
+    log(23, "the class API against f64 on the CPU: " + "; ".join(notes)
+        + f" (budget {TOL})")
+
+    # -- 24. times ---------------------------------------------------------
+    t = kinds["eigh_jacobi"]
+    t["ms"], t["plain_ms"] = paired_ms(
+        lambda: k7.eigh_jacobi(grams, SWEEPS),
+        lambda: k7.eigh_jacobi_plain(grams, SWEEPS), plain_time=event_ms)
+    t["library_ms"] = event_ms(lambda: torch.linalg.eigh(grams), reps=1,
+                               warmup=0)
+    kp = grams.shape[-1] + grams.shape[-1] % 2
+    m = kp // 2
+    # per round, A symmetric: the two-sided rotation of the 2 x 2 blocks
+    # between two pairs in its upper triangle (24 FLOPs each) and of each
+    # pair's own block, which it diagonalizes (4); V's two columns per pair
+    # (3 Kp^2). Kp - 1 rounds a sweep, the sweeps each matrix ran (the
+    # cap's extra count is no sweep).
+    per_round = 24 * m * (m - 1) // 2 + 4 * m + 3 * kp * kp
+    sweeps_run = int(torch.clamp(gram_run, max=SWEEPS).sum())
+    t["bound"] = bound(nbytes(grams) * 2 + grams.shape[0] * kp * 4,
+                       sweeps_run * (kp - 1) * per_round)
+    per_call = {}
+    for label, fn in (
+            ("eigh via K3", lambda: analysis11(loc, nb, gauss, x32)),
+            ("eigh via K7", lambda: twosided(analysis11, loc, nb, gauss,
+                                             x32)),
+            ("cheb", lambda: cheb11(loc, nb, gauss, x32))):
+        per_call[label] = median_ms(fn, reps=10, inner=3)
+    log(24, f"eigh_jacobi [{g}, 40, 40] config-11 Grams: kernel {t['ms']!r} "
+        f"ms, plain {t['plain_ms']!r} ms, torch.linalg.eigh "
+        f"{t['library_ms']!r} ms (one call), bound {t['bound'][0]!r} ms "
+        f"({t['bound'][1]}) at {sweeps_run / grams.shape[0]!r} sweeps per "
+        f"matrix on average [{gpu}]")
+    log(24, "config-11 analysis per call: " + "; ".join(
+        f"{k} {v!r} ms = {g / v * 1e3!r} grid-points/s"
+        for k, v in per_call.items()) + f" [{gpu}]")
+    wall, busy, rows = device_profile(
+        lambda: twosided(analysis11, loc, nb, gauss, x32))
+    check(busy > 0, "profile config 11: no device time recorded")
+    k7_ms = sum(ms for name, ms in rows if "eigh_jacobi" in name)
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
+    log(24, f"torch.profiler, 5 calls of the config-11 analysis via K7: wall "
+        f"{wall!r} ms/call, device {busy!r} ms/call (idle "
+        f"{1 - busy / wall:.1%}), K7 {k7_ms!r} ms/call = "
+        f"{k7_ms / busy:.1%} of device time; kernels, ms/call: {top} [{gpu}]")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ import tpu_assim_torch as TT
 from tpu_assim_torch import convert
 from tpu_assim_torch.interface import letkf as tletkf
 from tpu_assim_torch.obs_ops import lorenz96 as tops
+from tpu_assim_torch.transform import MultiplicativeInflation
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's spinning OpenMP threads would compete with JAX's for the cores.
@@ -269,8 +270,9 @@ def test_class_api_config_errors():
         TT.LETKF(object(), method="fused2d", max_obs=16)
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.LETKF(loc, weight_save_path="w.h5")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.ETKF(pre_transform=[object()])
+    # the transforms are ported: any iterable of them is taken
+    inflation = MultiplicativeInflation(1.2)
+    assert TT.ETKF(pre_transform=[inflation]).pre_transform == [inflation]
     with pytest.raises(ValueError):
         TT.LETKF(loc, method="pallas")
 

@@ -22,6 +22,7 @@ from tpu_assim.ops.pallas.svd import eigh_svd_jacobi as jax_eigh_svd
 from tpu_assim.ops.pallas.svd import svd_jacobi as jax_svd_jacobi
 
 from tpu_assim_torch.ops import linalg as tl
+from tpu_assim_torch.ops.cuda import jacobi as k7
 from tpu_assim_torch.ops.cuda import svd as k3
 
 # One intra-op thread: the suite runs in several worker processes, and
@@ -251,10 +252,25 @@ def test_routes_reach_the_plain_kernel(cpu_is_a_kernel_device, rng,
                                atol=1e-4)
 
 
-def test_twosided_eigh_raises_naming_k7(cpu_is_a_kernel_device, monkeypatch):
+def test_twosided_eigh_routes_to_k7(cpu_is_a_kernel_device, monkeypatch):
+    """TPU_ASSIM_EIGH_KERNEL=twosided sends eigh_psd's batches on the gate to
+    the two-sided kernel's wrapper (its plain version on the CPU) with the
+    JAX dispatch's 7 sweeps, exact on a +lambda/-lambda tie; off the gate
+    the variable is not read, as in the JAX package."""
+    calls = []
+    plain = k7.eigh_jacobi_plain
+    monkeypatch.setattr(
+        k7, "eigh_jacobi_plain",
+        lambda a, sweeps=7, with_sweeps=False: calls.append(
+            (tuple(a.shape), sweeps)) or plain(a, sweeps, with_sweeps))
     monkeypatch.setenv("TPU_ASSIM_EIGH_KERNEL", "twosided")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tl.eigh_psd(torch.eye(4).expand(256, 4, 4))
-    # off the gate the variable is not read, as in the JAX package
+    q = np.linalg.qr(np.random.RandomState(5).normal(size=(256, 4, 4)))[0]
+    a = np.einsum("bik,k,bjk->bij", q, [-2.0, -1.0, 1.0, 2.0], q)
+    ev, evec = tl.eigh_psd(t(a.astype(np.float32)))
+    assert calls == [((256, 4, 4), 7)]
+    np.testing.assert_allclose(ev, np.broadcast_to([-2.0, -1, 1, 2],
+                                                   (256, 4)), atol=1e-5)
+    np.testing.assert_allclose(rec(evec, ev, evec), a, atol=1e-5)
     ev, _ = tl.eigh_psd(torch.eye(4, dtype=torch.float64)[None])
     assert torch.equal(ev, torch.ones(1, 4, dtype=torch.float64))
+    assert len(calls) == 1

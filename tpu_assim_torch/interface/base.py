@@ -2,7 +2,8 @@
 Base assimilation interface: the ``assimilate()`` template method (PyTorch
 port of :mod:`tpu_assim.interface.base`).
 
-validate -> select the analysis time -> ``update_state`` -> validate, over
+validate -> select the analysis time -> pre-transforms -> ``update_state``
+-> post-transforms -> validate, over
 :class:`~tpu_assim_torch.state.EnsembleState` and
 :class:`~tpu_assim_torch.observation.Observation` on one device. Host code
 only validates and selects times.
@@ -31,8 +32,9 @@ class BaseAssimilation:
     ----------
     smoother : apply the weights to the whole time window (True) or only at
         the analysis time (False).
-    pre_transform / post_transform : not ported yet (ROADMAP.md Queue 1
-        item 8, ``transform/``); anything but None or empty raises.
+    pre_transform / post_transform : iterables of
+        :class:`~tpu_assim_torch.transform.BaseTransformer`, applied around
+        ``update_state`` in order.
     forward_model : optional callable ``(state, iter_num) -> (state,
         pseudo_state)`` that propagates the model ensemble.
     weight_save_path : not ported yet (ROADMAP.md Queue 1 item 11,
@@ -47,10 +49,6 @@ class BaseAssimilation:
         forward_model: Optional[Callable] = None,
         weight_save_path: Optional[str] = None,
     ):
-        if pre_transform or post_transform:
-            raise NotImplementedError(
-                "pre_transform/post_transform are not ported yet: ROADMAP.md "
-                "Queue 1 item 8 (transform/)")
         if weight_save_path is not None:
             raise NotImplementedError(
                 "weight_save_path is not ported yet: ROADMAP.md Queue 1 item "
@@ -189,9 +187,10 @@ class BaseAssimilation:
         pseudo_state: Optional[EnsembleState] = None,
         analysis_time: Optional[float] = None,
     ) -> EnsembleState:
-        """Validate, resolve the analysis time, run ``update_state`` and
-        validate the analysis. Without observations the background state
-        comes back, with a warning."""
+        """Validate, resolve the analysis time, run the pre-transforms,
+        ``update_state`` and the post-transforms, and validate the analysis.
+        Without observations the background state comes back, with a
+        warning."""
         start = _time.time()
         if observations is None or (
             isinstance(observations, (list, tuple, set)) and not observations
@@ -206,8 +205,13 @@ class BaseAssimilation:
         self._validate_state(state)
         self._validate_observations(observations)
         analysis_time = self._get_analysis_time(state, analysis_time)
+        for trans in self.pre_transform or ():
+            state, observations, pseudo_state = trans.pre(
+                state, observations, pseudo_state)
         analysis = self.update_state(state, observations, pseudo_state,
                                      analysis_time)
+        for trans in self.post_transform or ():
+            analysis = trans.post(analysis, state, observations, pseudo_state)
         self._validate_state(analysis)
         logger.info("Finished assimilation after %.2f s", _time.time() - start)
         return analysis

@@ -4,8 +4,10 @@ Batched linear-algebra helpers for the analysis cores (PyTorch port of
 
 :func:`svd` and :func:`eigh_psd` send large square f32 batches on a CUDA
 device to the one-sided Jacobi kernel
-(:mod:`tpu_assim_torch.ops.cuda.svd`), under the JAX package's gate; all
-else goes to :func:`torch.linalg.svd` / :func:`torch.linalg.eigh`.
+(:mod:`tpu_assim_torch.ops.cuda.svd`), under the JAX package's gate;
+``TPU_ASSIM_EIGH_KERNEL=twosided`` sends :func:`eigh_psd`'s to the
+two-sided Jacobi kernel (:mod:`tpu_assim_torch.ops.cuda.jacobi`). All else
+goes to :func:`torch.linalg.svd` / :func:`torch.linalg.eigh`.
 
 The Newton-Schulz helpers (:func:`inv_sqrt_psd_newton`,
 :func:`sqrt_and_inv_sqrt_psd_newton`, :func:`inv_spd_newton`) are
@@ -111,14 +113,15 @@ def eigh_psd(tensor: torch.Tensor, use_jacobi: Optional[bool] = None
     of :func:`svd`; the rest to :func:`torch.linalg.eigh`. That route is
     exact for PSD inputs, and for symmetric ones without an exact
     +lambda/-lambda magnitude tie. ``TPU_ASSIM_EIGH_KERNEL=twosided``
-    selects the two-sided Jacobi kernel, which is not ported yet and
-    raises.
+    (read only on the gate, as in the JAX package) selects the two-sided
+    Jacobi kernel (:func:`tpu_assim_torch.ops.cuda.jacobi.eigh_jacobi`,
+    7 sweeps), exact for any symmetric input.
     """
     if _takes_jacobi(tensor, use_jacobi):
         if os.environ.get("TPU_ASSIM_EIGH_KERNEL", "onesided") == "twosided":
-            raise NotImplementedError(
-                "TPU_ASSIM_EIGH_KERNEL=twosided needs the two-sided Jacobi "
-                "eigh kernel, not ported yet: ROADMAP.md Queue 2 K7")
+            from tpu_assim_torch.ops.cuda.jacobi import eigh_jacobi
+
+            return eigh_jacobi(tensor, sweeps=7)
         from tpu_assim_torch.ops.cuda.svd import eigh_svd_jacobi
 
         return eigh_svd_jacobi(tensor)
