@@ -3,9 +3,11 @@ Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
 Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
 IEnKS smoother (Jacobi SVD + fused RK4), the neighborhood solvers (cheb,
-pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips) and
-the localized kernelized ETKF (two-sided Jacobi eigh) at the reference
-benchmark shapes, checks them against f64 oracles, and times the kernels.
+pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
+localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
+LETKF over 8 virtual shards of the card (halo exchange kernel K8) at the
+reference benchmark shapes, checks them against f64 oracles, and times the
+kernels.
 
     python3 chip_smoke.py
 
@@ -36,6 +38,13 @@ Phases (one line each; any failure exits non-zero):
     Gauss l=2, window): eigh via      LKETKF, against f64
     K3, via K7, Tanh via K7, cheb  24 times of K7 and of the config-11
     against f64                       analyses; a torch.profiler window
+ 25 K8 (halo exchange) against     26 the halo analyses on 8 virtual
+    plain, bit for bit: config-3      shards: config 3 windowed (K1) and
+    shape, rings of 2 and 3, f64,     top-k through K8 + K4 (rdma equal
+    an unaligned row                  to ppermute), config 7 on a 2 x 4
+ 27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
+    [103, 8192] x 8 shards) and
+    of the halo analyses
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -81,6 +90,17 @@ from tpu_assim_torch.ops.localization import (
     neighborhood_select_window,
     safe_sqrt_keep_nan,
 )
+from tpu_assim_torch.parallel import cuda_halo as k8
+from tpu_assim_torch.parallel import make_grid_mesh
+from tpu_assim_torch.parallel.halo import (
+    _halo_max_in_support,
+    halo_letkf_analysis,
+    halo_letkf_analysis_2d,
+    halo_width_for,
+    shard_observations,
+    shard_observations_2d,
+)
+from tpu_assim_torch.parallel.mesh import Mesh
 from tpu_assim_torch.transform import MultiplicativeInflation
 
 SEED = 42
@@ -266,7 +286,8 @@ def counted(fn, *args):
     """``fn(*args)`` with every kernel's launch count set to 0 just before;
     returns the result and the counts read just after, those of 0
     left out."""
-    tables = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k7.LAUNCHES)
+    tables = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k7.LAUNCHES,
+              k8.LAUNCHES)
     for table in tables:
         for name in table:
             table[name] = 0
@@ -718,6 +739,7 @@ def main():
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
     window2d_phases(dev, gpu, kinds, launches)
     kernelized_phases(dev, gpu, loc, w, kinds, launches)
+    halo_phases(dev, gpu, kinds, launches)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -734,6 +756,8 @@ def main():
                      "tpu_assim/ops/pallas/letkf.py:1353"),
         "eigh_jacobi": ("tpu_assim_torch/csrc/eigh_jacobi.cu",
                         "tpu_assim/ops/pallas/jacobi.py:146"),
+        "halo_ring": ("tpu_assim_torch/csrc/halo_ring.cu",
+                      "tpu_assim/parallel/halo.py:308"),
     }
     print(gpu)
     print(json.dumps({"kernels": [
@@ -1558,6 +1582,212 @@ def kernelized_phases(dev, gpu, loc, w, kinds, launches):
         f"{wall!r} ms/call, device {busy!r} ms/call (idle "
         f"{1 - busy / wall:.1%}), K7 {k7_ms!r} ms/call = "
         f"{k7_ms / busy:.1%} of device time; kernels, ms/call: {top} [{gpu}]")
+
+
+N_SHARDS = 8        # virtual shards of the one card
+
+
+def k8_vs_plain(rng, dev, n, rows, cols, halo, dtype=torch.float32):
+    """K8 through ``ring_halo_rdma`` (one counted launch) against
+    ``ring_halo_plain`` on ``n`` random blocks [rows, cols] on the card,
+    bit for bit; returns the blocks."""
+    blocks = [torch.as_tensor(rng.normal(size=(rows, cols)), dtype=dtype,
+                              device=dev) for _ in range(n)]
+    before = k8.LAUNCHES["halo_ring"]
+    out = k8.ring_halo_rdma(blocks, n, halo)
+    torch.cuda.synchronize()
+    check(k8.LAUNCHES["halo_ring"] == before + 1,
+          f"K8 n={n} halo={halo}: {k8.LAUNCHES['halo_ring'] - before} "
+          "launches, not 1")
+    ref = k8.ring_halo_plain(blocks, n, halo)
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          f"K8 n={n} rows={rows} cols={cols} halo={halo} {dtype}: not bit "
+          "for bit its plain version")
+    return blocks
+
+
+def halo2d_sizes(obs, valid, grid, m_rows, m_cols, halo, radius):
+    """The window size and obs block of the 2-D halo window analysis: per
+    tile, over the valid obs of its tile neighbourhood (wrapped tiles are
+    masked out) and its local grid, the in-support maximum (``exact_nb``
+    of it) and the y-band width of its 128-column tiles."""
+    tr, tc = grid.shape[0] // m_rows, grid.shape[1] // m_cols
+    p = obs.shape[0] // (m_rows * m_cols)
+    worst, block = 0, 8
+    for i in range(m_rows):
+        for j in range(m_cols):
+            tiles = [si * m_cols + sj
+                     for si in range(max(i - halo, 0),
+                                     min(i + halo + 1, m_rows))
+                     for sj in range(max(j - halo, 0),
+                                     min(j + halo + 1, m_cols))]
+            cxy = np.concatenate([obs[t * p:(t + 1) * p][
+                valid[t * p:(t + 1) * p] > 0] for t in tiles])
+            gloc = grid[i * tr:(i + 1) * tr, j * tc:(j + 1) * tc].reshape(
+                tr * tc, -1)
+            worst = max(worst, k1.max_in_support_2d(cxy, gloc, radius,
+                                                    radius))
+            block = max(block, k1.required_obs_block_2d(cxy[:, 1],
+                                                        gloc[:, 1], radius))
+    return exact_nb(worst), block
+
+
+def k8_times(blocks, halo):
+    """K8 and its plain version per call: the device time of their kernels
+    (torch.profiler windows of 20 calls, in turns plain, kernel, kernel,
+    plain; a call's host work takes longer than K8 at these sizes, so CUDA
+    events around back-to-back calls time the host), the time per call
+    between CUDA events, and the bound: each input read once, each output
+    written once. Returns ``(kernel ms, plain ms, kernel event ms, plain
+    event ms, bound, bytes)``."""
+    n = len(blocks)
+    n_slots = 1 + len(k8._halo_offsets(n, halo))
+    kernel = (lambda: k8.ring_halo_rdma(blocks, n, halo))
+    plain = (lambda: k8.ring_halo_plain(blocks, n, halo))
+    busy = {kernel: [], plain: []}
+    for fn in (plain, kernel, kernel, plain):
+        _, ms, rows = device_profile(fn, calls=20)
+        if fn is kernel:
+            ms = sum(t for name, t in rows if "halo_ring" in name)
+            check(ms > 0, f"K8 profile: no halo_ring kernel in {rows}")
+        busy[fn].append(ms)
+    ev_kernel, ev_plain = paired_ms(kernel, plain)
+    moved = nbytes(*blocks) * (1 + n_slots)
+    return (statistics.mean(busy[kernel]), statistics.mean(busy[plain]),
+            ev_kernel, ev_plain, bound(moved, 0), moved)
+
+
+def halo_phases(dev, gpu, kinds, launches):
+    """Phases 25-27: K8 against its plain version, the obs-sharded halo
+    analyses over 8 virtual shards of the card (bench configs 3 and 7)
+    against f64 oracles, and times."""
+    rng = np.random.RandomState(SEED + 10)
+    # -- 25. K8 against its plain version ----------------------------------
+    # bench config 3: 8 shards of 128 obs, packed rows k + 3 = 43
+    cases = [(N_SHARDS, 43, 128, 1, torch.float32),
+             (N_SHARDS, 43, 128, 2, torch.float32),
+             (2, 43, 128, 1, torch.float32),          # +1 and -1 alias
+             (3, 43, 128, 2, torch.float32),          # +-1 and -+2 alias
+             (N_SHARDS, 43, 128, 1, torch.float64),
+             (N_SHARDS, 43, 125, 2, torch.float32)]   # 4-byte route
+    blocks3 = k8_vs_plain(rng, dev, *cases[0])
+    for case in cases[1:]:
+        k8_vs_plain(rng, dev, *case)
+    kinds["halo_ring"] = {"max_abs_err": 0.0}
+    log(25, "K8 halo_ring against plain, bit for bit (torch.equal), one "
+        "launch each: " + "; ".join(
+            f"{n} shards [{rows}, {cols}] halo {halo} "
+            f"{str(dtype).split('.')[-1]}"
+            for n, rows, cols, halo, dtype in cases))
+
+    # -- 26. the halo analyses on 8 virtual shards -------------------------
+    g3, o3 = 10240, 1024
+    w3 = build_workload(40, g3, o3)
+    mesh = make_grid_mesh(N_SHARDS, devices=[dev] * N_SHARDS)
+    sh = shard_observations(w3[1], w3[2], w3[3], w3[5], g3, N_SHARDS)
+    nb3 = exact_nb(_halo_max_in_support(sh[3], sh[4], N_SHARDS, RADIUS,
+                                        "gc2", 1e-5, 1))
+    hw = halo_width_for(RADIUS, g3 / N_SHARDS)
+    args3 = [torch.as_tensor(a, device=dev)
+             for a in (w3[0],) + sh[:5] + (w3[4],)]
+    loc = GaspariCohn((RADIUS,), coord1_distance)
+    opts = dict(max_obs=nb3, halo_width=hw, inf_factor=INF,
+                cheb_degree=DEGREE)
+    window3 = halo_letkf_analysis(mesh, loc, local_method="window", **opts)
+    rdma3 = halo_letkf_analysis(mesh, loc, use_pallas=True, comm="rdma",
+                                **opts)
+    ppermute3 = halo_letkf_analysis(mesh, loc, use_pallas=True, **opts)
+    wt3 = [torch.as_tensor(a, device=dev) for a in w3]
+    w64_3 = [t.double() if t.is_floating_point() else t for t in wt3]
+    t0 = time.perf_counter()
+    oracle3 = make_letkf_analysis(loc, INF, chunksize=1024,
+                                  method="eigh")(*w64_3)
+    s_oracle3 = time.perf_counter() - t0
+    notes = []
+    out_w, counts = counted(window3, *args3)
+    check(counts == {"window1d": N_SHARDS}, f"halo window launches {counts}")
+    _, rel_w = compare(out_w, oracle3, "halo window config 3 vs f64 eigh")
+    fused = make_letkf_analysis(loc, INF, method="fused1d", max_obs=nb3,
+                                cheb_degree=DEGREE)(*wt3)
+    d_fused = float((out_w - fused).abs().max() / fused.abs().max())
+    notes.append(f"window (nb {nb3}, {counts}) {rel_w!r}; against the "
+                 f"unsharded fused1d {d_fused!r}")
+    out_r, counts = counted(rdma3, *args3)
+    check(counts == {"halo_ring": 1, "nbh_cheb": N_SHARDS},
+          f"halo rdma launches {counts}")
+    launches["halo_ring"] = counts.get("halo_ring", 0)
+    out_p, counts_p = counted(ppermute3, *args3)
+    check(counts_p == {"nbh_cheb": N_SHARDS},
+          f"halo ppermute launches {counts_p}")
+    check(torch.equal(out_r, out_p), "halo rdma differs from ppermute")
+    _, rel_r = compare(out_r, oracle3, "halo rdma config 3 vs f64 eigh")
+    notes.append(f"top-k use_pallas comm=rdma ({counts}) {rel_r!r}, equal "
+                 f"to comm=ppermute ({counts_p})")
+    # bench config 7 on a 2 x 4 tile mesh: cell (row, col), coords (x, y)
+    w7 = workload_2d(128, 1024, sort_cells=False)
+    n7, m_rows, m_cols = 128, 2, 4
+    obs_ij = np.stack([w7[3] // n7, w7[3] % n7], 1).astype(np.int32)
+    grid7 = w7[4].reshape(n7, n7, 2)
+    sh7 = shard_observations_2d(w7[1], w7[2], obs_ij, w7[5], (n7, n7),
+                                (m_rows, m_cols))
+    nb7, blk7 = halo2d_sizes(sh7[3], sh7[4], grid7, m_rows, m_cols, 1, R2)
+    mesh7 = Mesh(np.asarray([dev] * N_SHARDS, dtype=object).reshape(
+        m_rows, m_cols), ("row", "col"))
+    loc2 = GaspariCohn((R2, R2), dist2)
+    window7 = halo_letkf_analysis_2d(
+        mesh7, loc2, max_obs=nb7, grid_shape=(n7, n7), halo=(1, 1),
+        inf_factor=INF, cheb_degree=DEGREE, local_method="window",
+        obs_block=blk7)
+    args7 = [torch.as_tensor(a, device=dev) for a in (
+        w7[0].reshape(40, n7, n7),) + sh7[:5] + (grid7,)]
+    out7, counts = counted(window7, *args7)
+    check(counts == {"window2d": N_SHARDS}, f"halo 2-D launches {counts}")
+    wt7 = [torch.as_tensor(a, device=dev) for a in w7]
+    w64_7 = [t.double() if t.is_floating_point() else t for t in wt7]
+    t0 = time.perf_counter()
+    oracle7 = make_letkf_analysis(loc2, INF, chunksize=4096,
+                                  method="eigh")(*w64_7)
+    s_oracle7 = time.perf_counter() - t0
+    _, rel7 = compare(out7.reshape(40, -1), oracle7,
+                      "halo 2-D window config 7 vs f64 eigh")
+    notes.append(f"config 7 on a 2 x 4 tile mesh, window (nb {nb7}, obs "
+                 f"block {blk7}, {counts}) {rel7!r}")
+    log(26, f"halo analyses on {N_SHARDS} virtual shards of one card, "
+        f"config 3 (ens 40, grid {g3}, obs {o3}, GC r={RADIUS}, halo {hw}, "
+        f"degree {DEGREE}; f64 oracle {s_oracle3:.1f} s) and config 7 (f64 "
+        f"oracle {s_oracle7:.1f} s) against f64 eigh: " + "; ".join(notes)
+        + f" (budget {TOL})")
+
+    # -- 27. times -----------------------------------------------------------
+    big = [torch.as_tensor(rng.normal(size=(103, 8192)), dtype=torch.float32,
+                           device=dev) for _ in range(N_SHARDS)]
+    notes = []
+    for label, blocks, halo in (("config 3 [43, 128] x 8", blocks3, hw),
+                                ("[103, 8192] x 8", big, 1),
+                                ("[103, 8192] x 8", big, 2)):
+        ms, plain, ev, ev_plain, b, moved = k8_times(blocks, halo)
+        if blocks is blocks3:
+            kinds["halo_ring"].update(ms=ms, plain_ms=plain, bound=b)
+        notes.append(
+            f"{label} halo {halo}: device time kernel {ms!r} ms "
+            f"({moved / ms / 1e9!r} TB/s), plain {plain!r} ms; per call "
+            f"(CUDA events) kernel {ev!r} ms, plain {ev_plain!r} ms; bound "
+            f"{b[0]!r} ms ({moved} bytes)")
+    log(27, "halo_ring: " + "; ".join(notes) + f" [{gpu}]")
+    per_call = []
+    for label, fn, args, g in (
+            ("config 3 window (K1)", window3, args3, g3),
+            ("config 3 top-k rdma (K8 + K4)", rdma3, args3, g3),
+            ("config 3 top-k ppermute (K4)", ppermute3, args3, g3),
+            ("config 7 2 x 4 window (K6)", window7, args7, n7 * n7)):
+        ms = median_ms(lambda: fn(*args), reps=10, inner=3)
+        per_call.append(f"{label} {ms!r} ms = {g / ms * 1e3!r} grid-points/s")
+    log(27, f"halo analyses per call, {N_SHARDS} virtual shards on one card "
+        "(not a multi-GPU figure): " + "; ".join(per_call) + f" [{gpu}]")
+    notes = [profile_note("config 3 window", lambda: window3(*args3)),
+             profile_note("config 3 top-k rdma", lambda: rdma3(*args3)),
+             profile_note("config 7 2 x 4 window", lambda: window7(*args7))]
+    log(27, "torch.profiler, 5 calls each: " + "; ".join(notes) + f" [{gpu}]")
 
 
 if __name__ == "__main__":

@@ -220,6 +220,45 @@ def test_lienks_matches_jax_f64(rng, kind, integrate, max_obs, selection):
     close(out, ref)
 
 
+@pytest.mark.parametrize("kind", ["transform", "bundle"])
+@pytest.mark.parametrize("short", [2, 0])
+def test_lienks_strict_window_overflow_is_nan(rng, monkeypatch, kind, short):
+    """The strict window's poison reaches the smoother: with ``max_obs``
+    ``short`` slots below the in-support maximum, exactly the overflowing
+    columns are NaN (JAX, which scales by ``safe_sqrt``, returns the prior
+    there: its columns are not compared), the others equal JAX's within
+    1e-10, and no SVD sees a NaN; at the maximum no column is NaN."""
+    w = workload(rng, k=8, g=80, o=40)
+    radius = 5.0
+    worst = max_in_support_1d(w[5][:, 0], w[4][:, 0], radius)
+    nb = worst - short
+    jl = jloc.GaspariCohn((radius,), jax_coord1)
+    integ = JRK4(JLorenz96(), 0.05)
+    opts = dict(n_outer=2, kind=kind, tau=0.8, max_obs=nb,
+                selection="window")
+    wj, wt = both(w)
+    ref = np.asarray(JA.make_lienks_step(jl, integ, 3, **opts)(*wj))
+    svd = torch.linalg.svd
+
+    def finite_svd(a, *args, **kwargs):
+        assert torch.isfinite(a).all(), "an SVD saw a NaN"
+        return svd(a, *args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "svd", finite_svd)
+    out = TA.make_lienks_step(convert.from_tpu_assim(jl),
+                              convert.from_tpu_assim(integ), 3,
+                              **opts)(*wt).numpy()
+    _, w_nbh = tloc.neighborhood_select_window(
+        convert.from_tpu_assim(jl), TA._with_time(wt[4]),
+        TA._with_time(wt[5]), nb)
+    overflow = torch.isnan(w_nbh).any(-1).numpy()
+    nan_cols = np.isnan(out).any(axis=0)
+    np.testing.assert_array_equal(nan_cols, overflow)
+    assert np.isnan(out[:, nan_cols]).all()
+    assert (0 < nan_cols.sum() < 80) if short else not nan_cols.any()
+    close(out[:, ~nan_cols], ref[:, ~nan_cols])
+
+
 def test_lienks_unlocalized_with_obs_operator_matches_jax_f64(rng):
     w = workload(rng, g=32, o=8)
     wj, wt = both(w)

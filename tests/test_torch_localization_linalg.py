@@ -3,13 +3,16 @@ Parity of the PyTorch port's localization, linear-algebra and ETKF cores
 (tpu_assim_torch.ops.localization / linalg / etkf, interface.mixin_local,
 convert) against the JAX package on the same numpy inputs, in f64 at 1e-10.
 Weight matrices and recompositions are compared, never eigenvectors, whose
-signs are arbitrary.
+signs are arbitrary. The eigh path's gradients (the Daleckii-Krein rule)
+are held against the Newton-Schulz path's and ``jax.grad`` at 1e-8, JAX's
+own bound for them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpu_assim.interface import mixin_local as jml
@@ -141,6 +144,110 @@ def test_inv_and_inv_sqrt_psd_eigh(rng):
     inv_j, isq_j = jl.inv_and_inv_sqrt_psd_eigh(jnp.asarray(a), 2.5)
     close(inv_t, inv_j)
     close(isq_t, isq_j)
+
+
+# -- the eigh path's gradient (the Daleckii-Krein rule) -----------------------
+
+def rank_deficient(rng, k=10, o=30, g=4, rank=3):
+    """JAX's degenerate case (tests/test_differentiable.py:177-182): every
+    column weights only the first ``rank`` observations, so each Gram has
+    rank 3; column 2 weights none (an all-zero Gram)."""
+    perts = rng.normal(size=(k, o))
+    innov = rng.normal(size=o)
+    w = np.zeros((g, o))
+    w[:, :rank] = rng.uniform(0.2, 1.0, size=(g, rank))
+    w[2] = 0.0
+    return perts, innov, w
+
+
+def port_grads(perts, innov, w, rho, method):
+    """Gradients of sum(W^2) in the taper weights and in rho."""
+    wt = t(w).requires_grad_(True)
+    rt = torch.tensor(rho, dtype=torch.float64, requires_grad=True)
+    loss = te.letkf_weights_dense(t(perts), t(innov), wt, rt, method=method,
+                                  newton_iters=50).square().sum()
+    loss.backward()
+    return wt.grad, rt.grad
+
+
+def test_eigh_grad_matches_newton_on_degenerate(rng):
+    """The port of TestEighDegenerateSpectra: on rank-deficient Grams the
+    eigh gradients equal the Newton-Schulz path's within 1e-8, and the
+    all-zero-weight column's gradient is finite."""
+    case = rank_deficient(rng)
+    ge = port_grads(*case, 1.1, "eigh")
+    gn = port_grads(*case, 1.1, "newton")
+    for a, b in zip(ge, gn):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-8,
+                                   atol=1e-10)
+    assert (ge[0][2] != 0).any()
+
+
+def test_eigh_grad_matches_jax_grad(rng):
+    perts, innov, w = rank_deficient(rng)
+
+    def loss(wl, rho):
+        return jnp.sum(je.letkf_weights_dense(
+            jnp.asarray(perts), jnp.asarray(innov), wl, rho) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(w), jnp.asarray(1.1))
+    for a, b in zip(port_grads(perts, innov, w, 1.1, "eigh"), ref):
+        close(a, b, 1e-8)
+
+
+def test_eigh_inf_factor_grad_matches_fd(rng):
+    perts, innov, w = rank_deficient(rng)
+
+    def loss(rho):
+        return float(te.letkf_weights_dense(t(perts), t(innov), t(w),
+                                            rho).square().sum())
+
+    _, g = port_grads(perts, innov, w, 1.1, "eigh")
+    eps = 1e-6
+    fd = (loss(1.1 + eps) - loss(1.1 - eps)) / (2 * eps)
+    np.testing.assert_allclose(float(g), fd, rtol=1e-6)
+
+
+def test_eigh_gradcheck_well_separated(rng):
+    """gradcheck in f64 on well-separated spectra, through both outputs and
+    the regularizer; the input is symmetrized, as the rule differentiates
+    the symmetric part."""
+    a = rng.normal(size=(3, 5, 5))
+    a = a @ np.swapaxes(a, -1, -2) + np.diag(np.arange(1.0, 6.0))
+    g_mat = t(a).requires_grad_(True)
+    reg = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
+
+    def fn(m, r):
+        return tl.inv_and_inv_sqrt_psd_eigh(0.5 * (m + m.transpose(-1, -2)),
+                                            r)
+
+    assert torch.autograd.gradcheck(fn, (g_mat, reg))
+
+
+def test_full_analysis_eigh_grad_matches_jax(rng):
+    """The gradient of the dense eigh analysis in the state, against
+    jax.grad of the same scalar."""
+    from tpu_assim.analysis import make_letkf_analysis as jax_analysis
+
+    from tpu_assim_torch.analysis import make_letkf_analysis
+
+    ens, g, o = 8, 32, 12
+    state = rng.normal(size=(ens, g))
+    obs_idx = np.arange(0, g, g // o)[:o].astype(np.int32)
+    rest = (rng.normal(size=o), np.full(o, 0.5), obs_idx,
+            np.arange(g, dtype=float)[:, None],
+            np.arange(g, dtype=float)[obs_idx, None])
+    jl_loc = jloc.GaspariCohn((4.0,), jax_coord1)
+    ref_fn = jax_analysis(jl_loc, 1.1, method="eigh")
+    ref = jax.grad(lambda s: jnp.sum(ref_fn(s, *map(jnp.asarray, rest))
+                                     ** 2))(jnp.asarray(state))
+    analyse = make_letkf_analysis(convert.from_tpu_assim(jl_loc), 1.1,
+                                  method="eigh")
+    st = t(state).requires_grad_(True)
+    analyse(st, *(t(a) for a in rest)).square().sum().backward()
+    assert torch.isfinite(st.grad).all() and st.grad.abs().max() > 0
+    close(st.grad, ref, 1e-8)
 
 
 def test_matrix_product_and_diagonal_add(rng):

@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "SMEM_PER_BLOCK", "build_all", "load_library"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("letkf_window1d", "rk4_l96", "svd_jacobi", "letkf_nbh_cheb",
-           "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi")
+           "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi", "halo_ring")
 # Shared memory one block may use on Hopper (227 KB), which bounds the
 # shapes the kernels take.
 SMEM_PER_BLOCK = 232448

@@ -657,7 +657,7 @@ def make_lienks_step(
     (:func:`tpu_assim_torch.ops.ienks.ienks_transform_step` /
     ``ienks_bundle_step``, batched [g, k, k]). Each inner step takes two
     batched K x K SVDs, which go to the one-sided Jacobi kernel for large
-    f32 batches on CUDA. The neighborhood selection and its ``safe_sqrt``
+    f32 batches on CUDA. The neighborhood selection and its sqrt taper
     weights are computed once per call, before the outer loop, which runs
     on the device without a host sync.
 
@@ -672,7 +672,9 @@ def make_lienks_step(
         ``epsilon``).
     max_obs / selection / max_obs_strict : fixed-size neighborhood
         selection, as in :func:`make_letkf_analysis`; ``max_obs=None``
-        takes the dense taper.
+        takes the dense taper. A column that the strict window poisons
+        (more in-support observations than ``max_obs``) comes out NaN; the
+        inner steps solve it with zero weights, so no SVD sees a NaN.
 
     Returns
     -------
@@ -696,11 +698,16 @@ def make_lienks_step(
         perts = state_data - mean[None, :]                     # [k, g]
         grid_info = _with_time(grid_coords)
         obs_info = _with_time(obs_coords)
+        poisoned = None
         if localization is not None and max_obs is not None:
             idx, w_nbh = select_neighborhoods(localization, grid_info,
                                               obs_info, max_obs, selection,
                                               max_obs_strict)
-            sqrt_w = safe_sqrt(w_nbh).to(dtype)               # [g, nb]
+            sqrt_w = safe_sqrt_keep_nan(w_nbh).to(dtype)      # [g, nb]
+            # the strict window's NaN poison: the inner SVDs take zeros in
+            # its place, and the columns come out NaN at the end
+            poisoned = torch.isnan(sqrt_w).any(-1)            # [g]
+            sqrt_w = torch.where(poisoned[:, None], 0.0, sqrt_w)
         else:
             idx = None
             if localization is None:
@@ -742,6 +749,9 @@ def make_lienks_step(
             else:
                 weights = ienks_transform_step(weights, scaled_perts,
                                                scaled_obs, tau)
-        return mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
+        out = mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
+        if poisoned is None:
+            return out
+        return torch.where(poisoned[None, :], torch.nan, out)
 
     return step

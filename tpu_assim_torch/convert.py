@@ -20,6 +20,7 @@ from tpu_assim_torch.ops.localization import (
     GaspariCohnInf,
     abs_distance,
 )
+from tpu_assim_torch.parallel.mesh import Mesh
 from tpu_assim_torch.state import EnsembleState
 from tpu_assim_torch.transform import MultiplicativeInflation, Normalizer
 
@@ -80,8 +81,11 @@ def from_tpu_assim(obj, dist_func=None, operator=None, device="cuda"):
     ``GaspariCohn``, ``GaspariCohnInf``, ``EnsembleState``,
     ``Observation``, kernel (every concrete kernel but ``ModuleKernel``, and
     the ``+ * **`` compositions), ``MultiplicativeInflation`` or
-    ``Normalizer``, built from its attributes (arrays as tensors on
-    ``device``, by default the card; pass ``device="cpu"`` for the CPU).
+    ``Normalizer``, or of a ``jax.sharding.Mesh``, built from its attributes
+    (arrays as tensors on ``device``, by default the card; pass
+    ``device="cpu"`` for the CPU). A mesh becomes a
+    :class:`~tpu_assim_torch.parallel.mesh.Mesh` with the same axis names
+    and shape, every position on ``device`` (virtual shards).
 
     A JAX callable cannot be carried across: localizations get
     ``dist_func``, by default :func:`coord1_distance`, observations get
@@ -129,6 +133,9 @@ def from_tpu_assim(obj, dist_func=None, operator=None, device="cuda"):
                         else torch.as_tensor(forcing))
     if kind == "RK4Integrator":
         return RK4Integrator(from_tpu_assim(obj.model), obj.dt)
+    if kind == "Mesh":
+        return Mesh(np.full(np.shape(obj.devices), torch.device(device),
+                            dtype=object), obj.axis_names)
     dist_func = coord1_distance if dist_func is None else dist_func
     if kind == "GaspariCohn":
         return GaspariCohn(tuple(float(r) for r in np.atleast_1d(obj.radius)),

@@ -13,8 +13,9 @@ The Newton-Schulz helpers (:func:`inv_sqrt_psd_newton`,
 :func:`sqrt_and_inv_sqrt_psd_newton`, :func:`inv_spd_newton`) are
 matmul-only iterations on SPD batches.
 
-Forward only: the Daleckii-Krein derivative of
-:func:`inv_and_inv_sqrt_psd_eigh` and the SVD pullback are not ported yet.
+:func:`inv_and_inv_sqrt_psd_eigh` carries the Daleckii-Krein derivative of
+the JAX package as a ``torch.autograd.Function``. The SVD pullback is not
+ported yet.
 """
 
 import os
@@ -156,13 +157,80 @@ def diagonal_add(tensor: torch.Tensor, to_add=0.0) -> torch.Tensor:
     return tensor + to_add * eye
 
 
+class _InvAndInvSqrtEigh(torch.autograd.Function):
+    """:func:`inv_and_inv_sqrt_psd_eigh` with the exact Daleckii-Krein
+    derivative of the JAX package's custom JVP
+    (``tpu_assim/ops/linalg.py:_inv_and_inv_sqrt_psd_eigh_jvp``), as its
+    adjoint. The forward's eigenpairs come from :func:`eigh_psd` without
+    gradients, so the Jacobi kernels' route is differentiable too."""
+
+    @staticmethod
+    def forward(ctx, g_mat, reg):
+        reg_value = reg.detach() if isinstance(reg, torch.Tensor) else reg
+        with torch.no_grad():
+            evals, evects = eigh_psd(g_mat.detach())
+            h = torch.clamp(evals, min=0.0) + reg_value
+            f1 = 1.0 / h
+            f2 = 1.0 / torch.sqrt(h)
+        ctx.save_for_backward(evals, evects, f1, f2)
+        ctx.reg = reg_value
+        ctx.reg_shape = reg.shape if isinstance(reg, torch.Tensor) else None
+        return rev_evd(f1, evects), rev_evd(f2, evects)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad1, grad2):
+        evals, evects, f1, f2 = ctx.saved_tensors
+        eps = torch.finfo(evals.dtype).eps
+        reg_abs = (abs(ctx.reg) if not isinstance(ctx.reg, torch.Tensor)
+                   else torch.abs(ctx.reg))
+        scale = torch.amax(torch.abs(evals), dim=-1, keepdim=True) + reg_abs
+        # the clamp's derivative: active above rounding-level negatives
+        act = (evals > -1e3 * eps * scale).to(evals.dtype)
+        d1 = -act * f1 * f1
+        d2 = -0.5 * act * f2 * f1
+        den = evals[..., :, None] - evals[..., None, :]
+        # the derivative mean on pairs closer than sqrt(eps) of the scale:
+        # the degenerate limit, and the stable branch of the divided
+        # difference
+        close = torch.abs(den) <= eps ** 0.5 * scale[..., None]
+        den_safe = torch.where(close, 1.0, den)
+
+        def gamma(f, d):
+            return torch.where(
+                close, 0.5 * (d[..., :, None] + d[..., None, :]),
+                (f[..., :, None] - f[..., None, :]) / den_safe)
+
+        inner = torch.zeros_like(den)
+        grad_reg = torch.zeros_like(evals)
+        for grad, f, d, dh in ((grad1, f1, d1, -f1 * f1),
+                               (grad2, f2, d2, -0.5 * f2 * f1)):
+            if grad is None:
+                continue
+            a = evects.transpose(-1, -2) @ grad @ evects
+            inner = inner + gamma(f, d) * a
+            grad_reg = grad_reg + torch.diagonal(a, dim1=-2, dim2=-1) * dh
+        inner = 0.5 * (inner + inner.transpose(-1, -2))
+        grad_g = evects @ inner @ evects.transpose(-1, -2)
+        if ctx.reg_shape is None:
+            return grad_g, None
+        # reg broadcasts against the eigenvalues [..., n]
+        return grad_g, grad_reg.sum_to_size(ctx.reg_shape)
+
+
 def inv_and_inv_sqrt_psd_eigh(g_mat: torch.Tensor, reg):
     """``((Gc + reg I)^{-1}, (Gc + reg I)^{-1/2})`` of a batched symmetric
     PSD matrix through one eigendecomposition, ``Gc`` the eigenvalue-clamped
-    (nearest-PSD) input."""
-    evals, evects = eigh_psd(g_mat)
-    h = torch.clamp(evals, min=0.0) + reg
-    return rev_evd(1.0 / h, evects), rev_evd(1.0 / torch.sqrt(h), evects)
+    (nearest-PSD) input.
+
+    Differentiable in ``g_mat`` and ``reg`` by the Daleckii-Krein rule
+    (divided differences of the eigenvalue maps, their derivative mean on
+    degenerate pairs), so the gradients are finite on the rank-deficient
+    Grams of localization and match the matmul-only Newton-Schulz path, as
+    in the JAX package. The gradient in ``g_mat`` is that of its symmetric
+    part.
+    """
+    return _InvAndInvSqrtEigh.apply(g_mat, reg)
 
 
 def _spectral_bound(a: torch.Tensor) -> torch.Tensor:
