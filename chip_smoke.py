@@ -45,6 +45,10 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
+Phase 1 also prints each K3 and K6 kernel's registers, shared memory and
+spills (nvcc -Xptxas -v) and fails on a spill of K6's register route;
+phase 17 runs K6 on both of its routes (register, shared) and prints the
+route of each case.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -162,6 +166,26 @@ def card():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def resources_note():
+    """Registers, static shared memory and spills of every kernel that the
+    K3 and K6 sources built, as nvcc -Xptxas -v reports them; for K6's
+    register route also the warps an SM holds at that register count (4
+    warps a block). Fails on any spill of that route."""
+    notes = []
+    for src in ("svd_jacobi", "letkf_window2d"):
+        for name, regs, smem, st, ld in _build.kernel_resources(
+                _build.ptxas_report(src)):
+            note = (f"{name} {regs} registers, {smem} B static smem, spills "
+                    f"{st} B stored / {ld} B loaded")
+            if name.startswith("window2d_reg_kernel"):
+                check(st == 0 and ld == 0,
+                      f"K6 register route spills: {note}")
+                blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.K6_REG_WARPS)
+                note += f" ({blocks * k1.K6_REG_WARPS} warps/SM by registers)"
+            notes.append(note)
+    return "; ".join(notes)
 
 
 def build_workload(ens_size, len_grid, nr_obs, seed=SEED):
@@ -388,24 +412,29 @@ def device_profile(fn, calls=5):
     ``fn`` after a warm-up call: ``(wall ms per call, device ms per call,
     [(kernel, device ms per call), ...] largest first)``. The device time
     is the sum of the kernels' own times, so 1 - device / wall is the
-    device's idle share in the window."""
+    device's idle share in the window. A window that records no device
+    activity at all (torch.profiler has returned one after many others)
+    is taken again, up to twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        rows.append((e.key, us / 1e3 / calls))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            rows.append((e.key, us / 1e3 / calls))
+        if rows:
+            break
     rows.sort(key=lambda r: -r[1])
     return wall, sum(ms for _, ms in rows), rows
 
@@ -447,6 +476,7 @@ def main():
         f"{torch.version.cuda}; tpu_assim_torch "
         f"{tpu_assim_torch.__version__}; kernels built and loaded in "
         f"{build_s:.2f} s")
+    log(1, "nvcc -Xptxas -v: " + resources_note())
 
     # -- 2. K2 against its plain version ---------------------------------
     w = build_workload(40, 10000, 1000)
@@ -672,8 +702,9 @@ def main():
 
     # -- 9. eigh LETKF with max_obs, f32, through K3 ---------------------
     k3.LAUNCHES["svd_jacobi"] = 0
-    eigh_nbh = make_letkf_analysis(loc, INF, method="eigh", max_obs=NB,
-                                   selection="window")(*wt)
+    eigh9 = make_letkf_analysis(loc, INF, method="eigh", max_obs=NB,
+                                selection="window")
+    eigh_nbh = eigh9(*wt)
     torch.cuda.synchronize()
     check(k3.LAUNCHES["svd_jacobi"] == 1,
           f"eigh max_obs: {k3.LAUNCHES['svd_jacobi']} K3 launches, not 1")
@@ -721,6 +752,7 @@ def main():
         3 * nbytes(gauss) + b * kk * 4,
         sweeps * b * (kp - 1) * (kp // 2) * 18 * kk)
     ms_step = median_ms(lambda: lienks(*wt), reps=10, inner=3)
+    ms_eigh9 = median_ms(lambda: eigh9(*wt), reps=10, inner=3)
     set_jacobi_dispatch(False)
     try:
         ms_step_lapack = event_ms(lambda: lienks(*wt), reps=1, warmup=0)
@@ -734,7 +766,8 @@ def main():
     log(11, f"IEnKS step (config 9): {ms_step!r} ms = "
         f"{10000 / ms_step * 1e3!r} grid-points/s with K3; "
         f"{ms_step_lapack!r} ms = {10000 / ms_step_lapack * 1e3!r} "
-        f"grid-points/s with torch.linalg.svd (one call) [{gpu}]")
+        f"grid-points/s with torch.linalg.svd (one call); eigh LETKF with "
+        f"max_obs {NB} (phase 9, 1 K3 launch) {ms_eigh9!r} ms [{gpu}]")
 
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
     window2d_phases(dev, gpu, kinds, launches)
@@ -988,6 +1021,19 @@ def k6_vs_plain(args, kw, label):
     return out, err, int(torch.isnan(out).any(1).any(0).sum())
 
 
+def k6_plan(args, kw):
+    """K6's launch plan (route, warps, blocks per tile) for these inputs."""
+    tile = kw.get("tile", 128)
+    return k1.window2d_plan(kw["ens_size"], kw["nb"], args[3].shape[0],
+                            kw["degree"], kw["width"],
+                            args[2].shape[1] // tile, tile)
+
+
+def plan_note(plan):
+    return (f"{plan['route']} route, {plan['warps']} warps a block, "
+            f"{plan['splits']} blocks a tile")
+
+
 def sampled_oracle(loc, w8, cols, dev):
     """The f64 eigh analysis of the config-8 columns ``cols`` of each strip
     of ``plan`` (a list of index arrays): per strip, over the observations
@@ -1049,6 +1095,12 @@ def window2d_phases(dev, gpu, kinds, launches):
     # a third coordinate for the extra-radius case: a level per cell
     z = torch.remainder(wt7[4][:, 0] + 2 * wt7[4][:, 1], 3.0)[:, None]
     grid3, obs3 = torch.cat([wt7[4], z], 1), torch.cat([wt7[5], z[wt7[3]]], 1)
+    # the window of phase 19's class smoother (two stacked obs times), past
+    # the register route
+    nb_s = exact_nb(k1.max_in_support_2d(np.tile(w7[5], (2, 1)), w7[4], R2,
+                                         R2))
+    check(nb_s > k1.K6_REG_MAX_NB, f"smoother window {nb_s} takes the "
+          "register route")
     cases = (
         ("banded", blk7, nb7, 1, (), True),
         ("whole table, not strict", o7, nb7, 1, (), False),
@@ -1056,9 +1108,11 @@ def window2d_phases(dev, gpu, kinds, launches):
         ("ns 3", blk7, nb7, 3, (), True),
         ("3 coords, extra radius 1.5", blk7, nb7, 1, (1.5,), True),
         (f"strict, nb {nb7 // 2}", blk7, nb7 // 2, 1, (), True),
+        (f"nb {nb_s}", blk7, nb_s, 1, (), True),
     )
     notes = []
     err_k6 = 0.0
+    routes = set()
     for label, block, nb, ns, extra, strict in cases:
         sp = torch.stack([torch.roll(sp7, s, dims=1) for s in range(ns)])
         mean = torch.stack([mean7 + s for s in range(ns)])
@@ -1074,9 +1128,13 @@ def window2d_phases(dev, gpu, kinds, launches):
             check(0 < n_nan < g7, f"{label}: {n_nan} NaN columns")
         elif label != "whole table, strict":
             check(n_nan == 0, f"{label}: {n_nan} NaN columns")
-        notes.append(f"{label} {e!r} ({n_nan} NaN columns)")
+        plan = k6_plan(args, kw)
+        routes.add(plan["route"])
+        notes.append(f"{label} {e!r} ({n_nan} NaN columns; "
+                     f"{plan_note(plan)})")
         if label == "banded":
             args7, kw7 = args, kw
+    check(routes == set(k1.K6_ROUTES), f"K6 routes taken: {routes}")
     log(17, f"K6 window2d, bench config 7 (128x128, ens 40, obs 1024, GC "
         f"r=4, nb {nb7}, block {blk7}, degree {DEGREE}) against plain, max "
         f"abs err: " + "; ".join(notes))
@@ -1162,11 +1220,12 @@ def window2d_phases(dev, gpu, kinds, launches):
           f"class smoother launches {counts}")
     oracle_s = LETKF(loc, INF, smoother=True).assimilate(state64, obs64)
     _, rel = compare(out.data, oracle_s.data, "class smoother vs f64 eigh")
-    notes.append(f"smoother [2, 2, 40, {g7}] single kernel (nb {nb_s}): "
-                 f"{rel!r}")
+    notes.append(f"smoother [2, 2, 40, {g7}] single kernel (nb {nb_s}, "
+                 f"shared route): {rel!r}")
     log(19, f"bench config 8 (1024x1024, ens 40, obs 10^5, 16 strips, "
         f"degree 16; plan {s_plan:.2f} s on the host): K6 vs plain max abs "
-        f"err {e8!r}; against f64 eigh (sampled oracle {s_oracle8:.1f} s): "
+        f"err {e8!r} on all {g8} columns ({plan_note(k6_plan(args8, kw8))}); "
+        f"against f64 eigh (sampled oracle {s_oracle8:.1f} s): "
         + "; ".join(notes) + f" (budget {TOL})")
 
     # -- 20. times ---------------------------------------------------------
@@ -1787,6 +1846,11 @@ def halo_phases(dev, gpu, kinds, launches):
     notes = [profile_note("config 3 window", lambda: window3(*args3)),
              profile_note("config 3 top-k rdma", lambda: rdma3(*args3)),
              profile_note("config 7 2 x 4 window", lambda: window7(*args7))]
+    _, _, rows = device_profile(lambda: window7(*args7))
+    k6_ms = sum(ms for name, ms in rows if "window2d" in name)
+    check(k6_ms > 0, f"profile config 7 tiles: no K6 kernel in {rows}")
+    notes.append(f"K6 over the 8 tiles of config 7 {k6_ms!r} ms of device "
+                 f"time per call")
     log(27, "torch.profiler, 5 calls each: " + "; ".join(notes) + f" [{gpu}]")
 
 

@@ -1,0 +1,168 @@
+"""
+Where the port's data lands, and the host-side launch arithmetic of its
+kernels, on the CPU:
+
+- ``EnsembleState`` and ``Observation``: a tensor keeps its device unless
+  ``device`` is given; numpy data goes to ``device``, by default the card,
+  with the coordinates, times and covariance following the data; with no
+  card and no ``device``, numpy data raises and names ``device="cpu"``;
+- K6's plan (``window2d_plan``): every window from 8 to 72 gets a route
+  whose block fits a Hopper block's shared memory, the register route up
+  to its bound, and grids of few tiles spread over several blocks a tile;
+- K3's plan (``svd_jacobi_plan``): every K up to ``MAX_K``;
+- the parse of nvcc's resource report that ``chip_smoke.py`` prints.
+
+Whether a card exists is decided inside each test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_assim_torch as TT
+from tpu_assim_torch._build import SMEM_PER_BLOCK
+from tpu_assim_torch.ops.cuda import letkf as k1
+from tpu_assim_torch.ops.cuda import svd as k3
+
+torch.set_num_threads(1)
+
+
+def _numpy_state(rng):
+    return (rng.normal(size=(1, 2, 5, 6)),
+            dict(times=np.arange(2.0), grid_coords=np.arange(6.0)))
+
+
+def _numpy_obs(rng):
+    return (rng.normal(size=(2, 4)), np.full(4, 0.5),
+            dict(obs_coords=np.arange(4.0), times=[0.0, 1.0]))
+
+
+def test_tensor_keeps_its_device(rng):
+    data, kw = _numpy_state(rng)
+    state = TT.EnsembleState(torch.from_numpy(data), **kw)
+    assert state.device.type == "cpu"
+    assert state.times.device.type == state.grid_coords.device.type == "cpu"
+    vals, cov, okw = _numpy_obs(rng)
+    obs = TT.Observation(torch.from_numpy(vals), cov, **okw)
+    assert {obs.observations.device.type, obs.covariance.device.type,
+            obs.obs_coords.device.type, obs.times.device.type} == {"cpu"}
+    # an explicit device moves a tensor
+    moved = TT.EnsembleState(torch.from_numpy(data), device="cpu", **kw)
+    assert moved.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kind", ["numpy", "list"])
+def test_cpu_device_keeps_numpy_on_the_cpu(rng, kind):
+    data, kw = _numpy_state(rng)
+    vals, cov, okw = _numpy_obs(rng)
+    if kind == "list":
+        data, vals, cov = data.tolist(), vals.tolist(), cov.tolist()
+    state = TT.EnsembleState(data, device="cpu", **kw)
+    assert state.device.type == "cpu" and state.valid
+    assert state.times.device.type == state.grid_coords.device.type == "cpu"
+    # a list becomes torch's default dtype, as torch.as_tensor makes it
+    np.testing.assert_allclose(state.data.numpy(), np.asarray(data),
+                               rtol=1e-6)
+    obs = TT.Observation(vals, cov, device="cpu", **okw)
+    assert obs.valid and not obs.correlated
+    assert {obs.observations.device.type, obs.covariance.device.type,
+            obs.obs_coords.device.type, obs.times.device.type} == {"cpu"}
+
+
+def test_numpy_goes_to_the_card_or_raises(rng):
+    data, kw = _numpy_state(rng)
+    vals, cov, okw = _numpy_obs(rng)
+    if torch.cuda.is_available():
+        assert TT.EnsembleState(data, **kw).device.type == "cuda"
+        obs = TT.Observation(vals, cov, **okw)
+        assert obs.observations.device.type == "cuda"
+        assert obs.covariance.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TT.EnsembleState(data, **kw)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TT.Observation(vals, cov, **okw)
+
+
+@pytest.mark.parametrize("nb", range(8, 73))
+def test_window2d_plan_fits(nb):
+    """Every window at ens 40, ns 1 and 3, degree 12, 16 and 48, over a
+    config-7 slice (168 slots) and a wide one (4000): a route that fits a
+    block, the register route exactly up to K6_REG_MAX_NB, and the plan's
+    bytes as the kernel lays them out."""
+    for ns in (1, 3):
+        for degree in (12, 16, 48):
+            for width, n_tiles in ((168, 128), (4000, 8192)):
+                plan = k1.window2d_plan(40, nb, ns, degree, width, n_tiles)
+                assert plan["smem"] <= SMEM_PER_BLOCK
+                assert plan["route"] == ("register" if nb <= k1.K6_REG_MAX_NB
+                                         else "shared")
+                cap = (k1.K6_REG_WARPS if plan["route"] == "register"
+                       else k1.K6_SMEM_MAX_WARPS)
+                assert 1 <= plan["warps"] <= cap
+                band, keys = 8 * width, 8 * (1 << (width - 1).bit_length())
+                per_warp = 4 * k1._k6_floats_per_warp(plan["route"], 40, nb,
+                                                      ns, degree)
+                assert plan["smem"] == -(-band // 16) * 16 + max(
+                    keys, plan["warps"] * per_warp)
+                assert 128 % plan["splits"] == 0
+                assert 128 // plan["splits"] >= 2 * plan["warps"]
+
+
+@pytest.mark.parametrize("n_tiles, splits", [(8192, 1), (128, 16), (16, 16),
+                                             (1000, 4)])
+def test_window2d_plan_spreads_small_grids(n_tiles, splits):
+    """Config 8 (8192 tiles) keeps a block a tile; config 7 (128 tiles)
+    and a 2-D halo tile (16) spread each tile until every warp has two
+    columns; a middling grid only until ~2112 blocks are in flight."""
+    plan = k1.window2d_plan(40, 52, 1, 16, 184, n_tiles)
+    assert plan["route"] == "register" and plan["warps"] == 4
+    assert plan["splits"] == splits
+
+
+def test_window2d_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.window2d_plan(40, 52, 1, 16, 40000, 1)
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__f89981a3_17_letkf_window2d_cu_5ef9315e19window2d_reg_kernelILi56EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__f89981a3_17_letkf_window2d_cu_5ef9315e19window2d_reg_kernelILi56EEEvNS_6ParamsE
+    40 bytes stack frame, 48 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 40 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__f89981a3_17_letkf_window2d_cu_5ef9315e20window2d_smem_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__f89981a3_17_letkf_window2d_cu_5ef9315e20window2d_smem_kernelENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function 'rk4_kernel' for 'sm_90a'
+ptxas info    : Used 32 registers
+"""
+
+
+def test_kernel_resources_parses_ptxas():
+    """chip_smoke.py phase 1 reads each kernel's registers, static shared
+    memory and spills from nvcc -Xptxas -v, template instances by name."""
+    from tpu_assim_torch._build import kernel_resources
+
+    assert kernel_resources(_PTXAS) == [
+        ("window2d_reg_kernel<56>", 168, 0, 48, 88),
+        ("window2d_smem_kernel", 64, 16, 0, 0),
+        ("rk4_kernel", 32, 0, 0, 0)]
+
+
+@pytest.mark.parametrize("k", range(1, k3.MAX_K + 1))
+def test_svd_jacobi_plan(k):
+    """K3's block: a warp per 8 column pairs (4 lanes a pair), rows padded
+    to whole 16-row chunks (at most 4 of them: registers), a column stride
+    of 16 mod 32, and A, V, 1/sigma and the seats within a block's shared
+    memory."""
+    plan = k3.svd_jacobi_plan(k)
+    kp = k + k % 2
+    assert plan["kp"] == kp
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    assert plan["threads"] // 4 >= kp // 2 > plan["threads"] // 4 - 8
+    assert plan["rows"] % 16 == 0 and kp <= plan["rows"] < kp + 16
+    assert plan["rows"] // 16 <= 4
+    assert plan["ld"] % 32 == 16 and plan["ld"] >= plan["rows"]
+    assert plan["smem"] == 4 * (2 * kp * plan["ld"] + kp) + 8 * kp
+    assert plan["smem"] <= SMEM_PER_BLOCK

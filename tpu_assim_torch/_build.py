@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -90,6 +91,58 @@ def load_library(name: str) -> ctypes.CDLL:
     if not target.is_file():
         BUILD_LOG[name] = _compile(name, target)
     return ctypes.CDLL(str(target))
+
+
+def ptxas_report(name: str) -> str:
+    """The resource report (``-Xptxas -v``) of ``csrc/<name>.cu``: from
+    this process's build, or from a fresh nvcc run into a scratch file when
+    the library was loaded as built."""
+    if name not in BUILD_LOG:
+        scratch = BUILD_DIR / f"report-{name}-{os.getpid()}.so"
+        try:
+            BUILD_LOG[name] = _compile(name, scratch)
+        finally:
+            scratch.unlink(missing_ok=True)
+    return BUILD_LOG[name]
+
+
+def _demangled_name(mangled: str) -> str:
+    """The function name of an Itanium-mangled kernel symbol, with an
+    integer template argument as ``name<arg>``; other symbols as given."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        m = re.match(r"\d+", mangled[i:])
+        j = i + len(m.group(0))
+        name, i = mangled[j:j + int(m.group(0))], j + int(m.group(0))
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def kernel_resources(report: str) -> list:
+    """``[(kernel, registers, static shared bytes, spill store bytes, spill
+    load bytes), ...]`` parsed from an ``-Xptxas -v`` report, a template
+    instance named as ``name<arg>``."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _demangled_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0) + spills)
+            name, spills = None, (0, 0)
+    return out
 
 
 def build_all() -> float:

@@ -8,9 +8,8 @@
 // letkf_window_analysis_fused_2d (kernels _letkf_window2d_dma_kernel, the
 // banded one, and _letkf_window2d_kernel, the whole-table one; core
 // _window2d_core). The plain PyTorch twin is
-// tpu_assim_torch/ops/cuda/letkf.py:window2d_plain. The solve is
-// cheb_core.cuh (shared with K1 and K4), the taper taper.cuh (shared with
-// K1).
+// tpu_assim_torch/ops/cuda/letkf.py:window2d_plain. The taper is
+// taper.cuh (shared with K1).
 //
 // Input: one y-sorted observation table [n_rows, rows], a row per
 // observation slot (k perturbations, innovation, x, y, extra coordinates),
@@ -20,14 +19,34 @@
 // of the JAX package is the same kernel with (0, 0, o) for every tile.
 //
 // What bounds it on an H100: the per-column work, not bytes. At bench
-// config 8 (2^20 columns, ens 40, nb 40-48, degree 16) a column costs the
-// Gram matrix (2 nb^2 k FLOP), the joint Clenshaw recurrence ((d + 1)(1 +
-// ns) nb (2 nb + 4)) and the apply (4 ns nb k): ~3.5e5 FLOP, ~0.35 TFLOP in
-// all, >= ~5 ms at the 67 TFLOP/s f32 rate outside the tensor cores,
-// against ~0.1 ms for the 336 MB of state the kernel reads and writes. Each
-// column's chain of dependent steps runs in one warp, as in K1, with the
-// Gram matrix and the Clenshaw vectors in the warp's slice of shared
-// memory; a block of up to 8 warps shares its tile's sorted band.
+// config 8 (2^20 columns, ens 40, nb 52, degree 16) a column costs the
+// Gram matrix, the joint Clenshaw recurrence over 1 + ns operands and the
+// apply: ~3.3e11 FLOP in all, >= ~4.9 ms at the 67 TFLOP/s f32 rate outside
+// the tensor cores, against ~0.1 ms for the 336 MB of state the kernel
+// reads and writes. Each column's chain of dependent steps runs in one
+// warp; what limits the rate is how many instructions a column issues and
+// how many warps an SM holds to hide the FMA chains' latency.
+//
+// Two routes, both kernels, picked by the wrapper's window2d_plan
+// (tpu_assim_torch/ops/cuda/letkf.py) from (k, nb, ns, degree, width):
+//  - the register route, nb <= 64 (cheb_reg.cuh): S in registers, 8 FMAs
+//    per 16-byte shared load in the Gram step and the mat-vec, ~11.2 KB of
+//    shared memory per column at nb 52, 4 warps a block. Registers bound
+//    it: NBC = nb rounded up to 8 is a template argument, and the kernel is
+//    built for at least 3 blocks per SM, 2 at NBC 64, where S alone takes
+//    128 registers a lane. nvcc 12.8 gives (chip_smoke.py phase 1, which
+//    fails on any spill of this route): 168 registers at NBC 48 and 56
+//    and 163 at 40, so 12 warps an SM (bench configs 8 and 7); 131 at 32
+//    (12 warps); 102-111 at 8-24 (16 warps); 215 at 64 (8 warps); no
+//    spills. The shared route takes 64 registers.
+//  - the shared route, nb > 64 (cheb_core.cuh, the design of K1 and K4): S
+//    in shared memory, one FMA per two shared loads, up to 8 warps a block
+//    as shared memory allows.
+// Each tile's columns may be spread over `splits` blocks, each of which
+// sorts the tile's band itself (a few microseconds against tens per
+// column), so that grids of few tiles (bench config 7: 128 tiles; a 2-D
+// halo tile: 16) fill the card's 132 SMs instead of leaving each warp 8-16
+// columns to walk in turn.
 //
 // Design against the TPU kernel: the TPU computes every slot's x-rank by an
 // [o_b, o_b] comparison and selects the window by a one-hot matmul in three
@@ -46,11 +65,13 @@
 #include <stdint.h>
 
 #include "cheb_core.cuh"
+#include "cheb_reg.cuh"
 #include "taper.cuh"
 
 namespace {
 
-constexpr int kMaxWarps = 8;  // columns in flight per block
+constexpr int kRegWarps = 4;    // warps of a register-route block
+constexpr int kSmemWarps = 8;   // most warps of a shared-route block
 using cheb::kFull;
 
 struct Params {
@@ -66,7 +87,8 @@ struct Params {
   int k, n_dims, n_rows, g, ns, nb, degree;
   int width;           // slots per slice
   int width_pow2;      // the sort's length: width rounded up to a power of 2
-  int tile;            // grid columns per block
+  int tile;            // grid columns per tile
+  int splits;          // blocks per tile
   int taper;           // 0 = GC(z, 1/2, c), 1 = GC(z, inf, c)
   int strict;
   int warps;
@@ -81,13 +103,20 @@ __host__ __device__ int pow2_at_least(int n) {
   return p;
 }
 
-// Bytes of the band's sort keys, sorted x and slot indices, 16-aligned.
+// Bytes of the band's sorted x and slot indices, 16-aligned. The sort's
+// 64-bit keys lie behind them, in the space the warps' workspaces take
+// once the band is sorted.
 __host__ __device__ size_t band_bytes(int width) {
-  const size_t b = 8u * pow2_at_least(width) + 8u * width;
-  return (b + 15) & ~static_cast<size_t>(15);
+  return (8u * width + 15) & ~static_cast<size_t>(15);
+}
+__host__ __device__ size_t key_bytes(int width) {
+  return 8u * pow2_at_least(width);
 }
 
-int floats_per_warp(int k, int nb, int ns, int degree) {
+// Floats of shared memory per warp of each route.
+int floats_per_warp(int route, int k, int nb, int ns, int degree) {
+  if (route == 0)
+    return cheb_reg::workspace_floats(k, cheb_reg::padded_nb(nb), ns, degree);
   // the solve's workspace, the sqrt taper weights [nb] and the table rows of
   // the window [nb]
   return (cheb::workspace_floats(k, nb, ns, degree) + 2 * nb + 3) & ~3;
@@ -112,31 +141,40 @@ __device__ int count_below(const float* x, int n, float key, bool inclusive) {
   return lo;
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-window2d_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_tiles = gridDim.x;
-  const int t = blockIdx.x;
-  const int k = p.k, nb = p.nb, ns = p.ns, width = p.width;
-  const int rows = k + 1 + p.n_dims;
-  const int off = p.bands[t];
-  const int a = p.bands[n_tiles + t];
-  const int b = p.bands[2 * n_tiles + t];
+// The block's part of its tile: tile t, columns [c0, c0 + cols) of it.
+struct Part {
+  int t, c0, cols;
+  const float* slice;  // the tile's slots, or nullptr (the tile is NaN)
+  const float* xs;     // [width] the band's x in rank order
+  const int* slot_of;  // [width] the slot of each rank
+};
 
-  // a slice outside the table poisons its tile (never read past the table)
+// Sorts the tile's slice by (masked x, slot) into the front of shared
+// memory, or NaN-poisons the block's columns when the slice leaves the
+// table (never reading past it).
+__device__ Part sort_band(const Params& p, unsigned char* smem) {
+  const int n_tiles = gridDim.x / p.splits;
+  Part part;
+  part.t = blockIdx.x / p.splits;
+  part.cols = p.tile / p.splits;
+  part.c0 = (blockIdx.x - part.t * p.splits) * part.cols;
+  const int k = p.k, width = p.width, rows = k + 1 + p.n_dims;
+  const int off = p.bands[part.t];
+  const int a = p.bands[n_tiles + part.t];
+  const int b = p.bands[2 * n_tiles + part.t];
   if (off < 0 || off + width > p.n_rows) {
-    for (int e = threadIdx.x; e < ns * k * p.tile; e += blockDim.x) {
-      const int f = e / p.tile, c = e - f * p.tile;
-      p.out[static_cast<size_t>(f) * p.g + t * p.tile + c] = nanf("");
+    for (int e = threadIdx.x; e < p.ns * k * part.cols; e += blockDim.x) {
+      const int f = e / part.cols, c = e - f * part.cols;
+      p.out[static_cast<size_t>(f) * p.g + part.t * p.tile + part.c0 + c] =
+          nanf("");
     }
-    return;
+    part.slice = nullptr;
+    return part;
   }
   const float* slice = p.table + static_cast<size_t>(off) * rows;
-
-  // 1. sort the slice's slots by (masked x, slot)
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);
-  float* xs = reinterpret_cast<float*>(keys + p.width_pow2);
+  float* xs = reinterpret_cast<float*>(smem);
   int* slot_of = reinterpret_cast<int*>(xs + width);
+  uint64_t* keys = reinterpret_cast<uint64_t*>(smem + band_bytes(width));
   const int n = p.width_pow2;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     uint64_t key = ~0ull;
@@ -171,59 +209,156 @@ window2d_kernel(const Params p) {
                               : FLT_MAX;
   }
   __syncthreads();
+  part.slice = slice;
+  part.xs = xs;
+  part.slot_of = slot_of;
+  return part;
+}
 
-  // 2. one warp per column of the tile
+// A column's window: its first rank, and the strict guard's poison (NaN
+// when more band observations lie in the x-cutoff than the window holds).
+struct Window {
+  int start;
+  float poison_y;
+};
+
+__device__ Window find_window(const Params& p, const Part& part, float gx,
+                              float sup, int lane) {
+  const int width = p.width, nb = p.nb;
+  int r = 0;
+  if (lane == 0) r = count_below(part.xs, width, gx, true);
+  if (lane == 1) r = count_below(part.xs, width, gx - sup, true);
+  if (lane == 2) r = count_below(part.xs, width, gx + sup, false);
+  const int center = __shfl_sync(kFull, r, 0);
+  const int low = __shfl_sync(kFull, r, 1);
+  const int high = __shfl_sync(kFull, r, 2);
+  int start = min(max(center - nb / 2, high - nb), low);
+  start = min(max(start, 0), width - nb);
+  Window win;
+  win.start = start;
+  win.poison_y =
+      (p.strict && width > nb && high - low > nb) ? nanf("") : 0.0f;
+  return win;
+}
+
+// Slot j of a column's window: its table row (-1 outside the slice), its
+// sqrt product-taper weight and its innovation.
+__device__ __forceinline__ void window_slot(const Params& p,
+                                            const Part& part, int pos,
+                                            int col, float gx, float gy,
+                                            int* row_out, float* sw,
+                                            float* y) {
+  const int k = p.k, rows = k + 1 + p.n_dims;
+  float w = 0.0f;
+  int row = -1;
+  *y = 0.0f;
+  if (pos >= 0 && pos < p.width) {
+    row = part.slot_of[pos];
+    const float* o = part.slice + static_cast<size_t>(row) * rows;
+    w = taper::weight(fabsf(part.xs[pos] - gx) / p.scal[1], p.taper, 0.0f) *
+        taper::weight(fabsf(o[k + 2] - gy) / p.scal[2], p.taper, 0.0f);
+    for (int e = 0; e < p.n_dims - 2; ++e)
+      w = w * taper::weight(
+                  fabsf(o[k + 3 + e] -
+                        p.grid[static_cast<size_t>(2 + e) * p.g + col]) /
+                      p.scal[3 + e],
+                  p.taper, 0.0f);
+    w = (w > p.epsilon) ? w : 0.0f;
+    *y = o[k];
+  }
+  *row_out = row;
+  *sw = sqrtf(w);
+}
+
+// The register route: NBC = nb rounded up to 8, S in registers.
+template <int NBC>
+__global__ void __launch_bounds__(kRegWarps * 32, NBC >= 64 ? 2 : 3)
+window2d_reg_kernel(const Params p) {
+  constexpr int R = NBC > 32 ? 2 : 1;  // window slots (rows of S) per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Part part = sort_band(p, smem);
+  if (part.slice == nullptr) return;
+  const int k = p.k, nb = p.nb, ns = p.ns, rows = k + 1 + p.n_dims;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* base = reinterpret_cast<float*>(smem + band_bytes(width)) +
+  float* base = reinterpret_cast<float*>(smem + band_bytes(p.width)) +
+                static_cast<size_t>(warp) * p.per_warp;
+  const cheb_reg::Workspace ws = cheb_reg::carve(base, k, NBC, ns, p.degree);
+  const float reg = p.scal[0];
+  const float sup = __fmul_rn(p.support_z, p.scal[1]);  // f32(z*) f32(rx)
+
+  for (int c = part.c0 + warp; c < part.c0 + part.cols; c += p.warps) {
+    const int col = part.t * p.tile + c;
+    const float gx = p.grid[col];
+    const float gy = p.grid[p.g + col];
+    const Window win = find_window(p, part, gx, sup, lane);
+    // each lane gathers its slots j = lane + 32 r; pad slots are zero
+    int row[R];
+    float sw[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = lane + 32 * r;
+      float y = 0.0f;
+      row[r] = -1;
+      sw[r] = 0.0f;
+      if (j < nb)
+        window_slot(p, part, win.start + j, col, gx, gy, &row[r], &sw[r],
+                    &y);
+      if (j < NBC) ws.w_all[j] = (j < nb) ? y * sw[r] + win.poison_y : 0.0f;
+    }
+    for (int kk = 0; kk < k; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = lane + 32 * r;
+        if (j >= NBC) continue;
+        const float v =
+            (row[r] >= 0)
+                ? part.slice[static_cast<size_t>(row[r]) * rows + kk]
+                : 0.0f;
+        ws.zt[kk * NBC + j] = v * sw[r];
+      }
+    }
+    for (int f = lane; f < ns * k; f += 32)
+      ws.spc[f] = p.sp[static_cast<size_t>(f) * p.g + col];
+    for (int i = lane; i < ns; i += 32)
+      ws.meanc[i] = p.mean[static_cast<size_t>(i) * p.g + col];
+    __syncwarp();
+
+    cheb_reg::solve_apply<NBC>(ws, p.nodes, p.dct, k, nb, ns, p.degree, reg,
+                               lane);
+    for (int f = lane; f < ns * k; f += 32)
+      p.out[static_cast<size_t>(f) * p.g + col] = ws.spc[f];
+    __syncwarp();
+  }
+}
+
+// The shared route: the workspace of cheb_core.cuh, S in shared memory.
+__global__ void __launch_bounds__(kSmemWarps * 32)
+window2d_smem_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Part part = sort_band(p, smem);
+  if (part.slice == nullptr) return;
+  const int k = p.k, nb = p.nb, ns = p.ns, rows = k + 1 + p.n_dims;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* base = reinterpret_cast<float*>(smem + band_bytes(p.width)) +
                 static_cast<size_t>(warp) * p.per_warp;
   const cheb::Workspace ws = cheb::carve(base, k, nb, ns, p.degree);
   float* sw = base + cheb::workspace_floats(k, nb, ns, p.degree);
   int* win_row = reinterpret_cast<int*>(sw + nb);
-  const float reg = p.scal[0], rx = p.scal[1], ry = p.scal[2];
-  const float sup = __fmul_rn(p.support_z, rx);  // f32(z*) f32(rx), no FMA
+  const float reg = p.scal[0];
+  const float sup = __fmul_rn(p.support_z, p.scal[1]);  // f32(z*) f32(rx)
 
-  for (int c = warp; c < p.tile; c += p.warps) {
-    const int col = t * p.tile + c;
+  for (int c = part.c0 + warp; c < part.c0 + part.cols; c += p.warps) {
+    const int col = part.t * p.tile + c;
     const float gx = p.grid[col];
     const float gy = p.grid[p.g + col];
-    // window start from three counts over the sorted band
-    int r = 0;
-    if (lane == 0) r = count_below(xs, width, gx, true);
-    if (lane == 1) r = count_below(xs, width, gx - sup, true);
-    if (lane == 2) r = count_below(xs, width, gx + sup, false);
-    const int center = __shfl_sync(kFull, r, 0);
-    const int low = __shfl_sync(kFull, r, 1);
-    const int high = __shfl_sync(kFull, r, 2);
-    int start = min(max(center - nb / 2, high - nb), low);
-    start = min(max(start, 0), width - nb);
-    // strict guard: more band observations in the x-cutoff than slots
-    const float poison_y =
-        (p.strict && width > nb && high - low > nb) ? nanf("") : 0.0f;
-
-    // gather the window's rows, product taper, sqrt-weight scaling
+    const Window win = find_window(p, part, gx, sup, lane);
     for (int j = lane; j < nb; j += 32) {
-      const int pos = start + j;
-      float w = 0.0f, y = 0.0f;
-      int row = -1;
-      if (pos >= 0 && pos < width) {
-        row = slot_of[pos];
-        const float* o = slice + static_cast<size_t>(row) * rows;
-        w = taper::weight(fabsf(xs[pos] - gx) / rx, p.taper, 0.0f) *
-            taper::weight(fabsf(o[k + 2] - gy) / ry, p.taper, 0.0f);
-        for (int e = 0; e < p.n_dims - 2; ++e)
-          w = w * taper::weight(
-                      fabsf(o[k + 3 + e] -
-                            p.grid[static_cast<size_t>(2 + e) * p.g + col]) /
-                          p.scal[3 + e],
-                      p.taper, 0.0f);
-        w = (w > p.epsilon) ? w : 0.0f;
-        y = o[k];
-      }
-      const float s = sqrtf(w);
-      sw[j] = s;
-      win_row[j] = row;
-      ws.w_all[j] = y * s + poison_y;
+      float y;
+      window_slot(p, part, win.start + j, col, gx, gy, &win_row[j], &sw[j],
+                  &y);
+      ws.w_all[j] = y * sw[j] + win.poison_y;
     }
     __syncwarp();
     // consecutive lanes read consecutive perturbations of one row
@@ -231,7 +366,8 @@ window2d_kernel(const Params p) {
       const int j = f / k, kk = f - j * k;
       const int row = win_row[j];
       const float v =
-          (row >= 0) ? slice[static_cast<size_t>(row) * rows + kk] : 0.0f;
+          (row >= 0) ? part.slice[static_cast<size_t>(row) * rows + kk]
+                     : 0.0f;
       ws.zh[j * ws.ld + kk] = v * sw[j];
     }
     for (int f = lane; f < ns * k; f += 32)
@@ -247,51 +383,78 @@ window2d_kernel(const Params p) {
   }
 }
 
+template <int NBC>
+cudaError_t launch_reg(const Params& p, int blocks, size_t smem,
+                       cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      window2d_reg_kernel<NBC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  window2d_reg_kernel<NBC><<<blocks, p.warps * 32, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory of a block of `warps` columns.
-size_t window2d_smem_bytes(int k, int nb, int ns, int degree, int width,
-                           int warps) {
-  return band_bytes(width) + static_cast<size_t>(warps) *
-                                 floats_per_warp(k, nb, ns, degree) *
-                                 sizeof(float);
+// Bytes of shared memory of a block of `warps` columns on `route` (0 the
+// register route, 1 the shared route).
+size_t window2d_smem_bytes(int route, int k, int nb, int ns, int degree,
+                           int width, int warps) {
+  const size_t work = static_cast<size_t>(warps) *
+                      floats_per_warp(route, k, nb, ns, degree) *
+                      sizeof(float);
+  const size_t keys = key_bytes(width);
+  return band_bytes(width) + (work > keys ? work : keys);
 }
 
 // The analysis of every grid column; all pointers are device memory, g a
-// multiple of tile, smem_limit the shared memory one block may use.
-// Returns the cudaError_t of the launch (0 on success).
+// multiple of tile, tile a multiple of splits. `route`, `warps` and
+// `splits` come from the wrapper's plan (window2d_plan). Returns the
+// cudaError_t of the launch (0 on success).
 int window2d_launch(const float* table, const int* bands, const float* grid,
                     const float* sp, const float* mean, const float* scal,
                     const float* nodes, const float* dct, float* out, int k,
                     int n_dims, int n_rows, int g, int ns, int nb, int degree,
                     int width, int tile, int taper, int strict,
-                    float support_z, float epsilon, int smem_limit,
-                    void* stream) {
+                    float support_z, float epsilon, int route, int warps,
+                    int splits, void* stream) {
   if (g <= 0) return 0;
-  if (tile <= 0 || g % tile || width < 1 || n_dims < 2)
+  if (tile <= 0 || g % tile || width < 1 || n_dims < 2 || splits < 1 ||
+      tile % splits || warps < 1 ||
+      (route == 0 && (warps > kRegWarps || nb > cheb_reg::kMaxNb)) ||
+      (route == 1 && warps > kSmemWarps) || route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per_warp = floats_per_warp(k, nb, ns, degree);
-  const size_t per_warp_bytes = static_cast<size_t>(per_warp) * sizeof(float);
-  const size_t band = band_bytes(width);
-  if (band + per_warp_bytes > static_cast<size_t>(smem_limit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int warps = static_cast<int>((smem_limit - band) / per_warp_bytes);
-  warps = warps < kMaxWarps ? warps : kMaxWarps;
-  warps = warps < tile ? warps : tile;
-  const size_t smem = band + warps * per_warp_bytes;
+  const size_t smem =
+      window2d_smem_bytes(route, k, nb, ns, degree, width, warps);
   Params p{table, bands, grid, sp, mean, scal, nodes, dct, out,
            k, n_dims, n_rows, g, ns, nb, degree, width,
-           pow2_at_least(width), tile, taper, strict, warps, per_warp,
-           support_z, epsilon};
-  cudaError_t err = cudaFuncSetAttribute(
-      window2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window2d_kernel<<<g / tile, warps * 32, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+           pow2_at_least(width), tile, splits, taper, strict, warps,
+           floats_per_warp(route, k, nb, ns, degree), support_z, epsilon};
+  const int blocks = (g / tile) * splits;
+  cudaError_t err;
+  if (route == 1) {
+    err = cudaFuncSetAttribute(window2d_smem_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    window2d_smem_kernel<<<blocks, warps * 32, smem, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (cheb_reg::padded_nb(nb)) {
+    case 8: err = launch_reg<8>(p, blocks, smem, st); break;
+    case 16: err = launch_reg<16>(p, blocks, smem, st); break;
+    case 24: err = launch_reg<24>(p, blocks, smem, st); break;
+    case 32: err = launch_reg<32>(p, blocks, smem, st); break;
+    case 40: err = launch_reg<40>(p, blocks, smem, st); break;
+    case 48: err = launch_reg<48>(p, blocks, smem, st); break;
+    case 56: err = launch_reg<56>(p, blocks, smem, st); break;
+    case 64: err = launch_reg<64>(p, blocks, smem, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* window2d_error_string(int code) {

@@ -18,6 +18,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tpu_assim_torch.state import as_device_tensor
+
 __all__ = ["Observation", "ObservationError"]
 
 
@@ -44,8 +46,11 @@ class Observation:
     correlated : mark the covariance as correlated; inferred from its shape
         when not given (a square ``[time, obs]`` covariance with
         ``time == obs`` counts as uncorrelated).
+    device : where ``observations`` go. A tensor stays on its device unless
+        ``device`` is given; anything else goes to ``device``, by default
+        the card (``"cuda"``). Without a card pass ``device="cpu"``.
 
-    Every tensor moves to the device of ``observations``.
+    Every other tensor moves to the device of ``observations``.
     """
 
     def __init__(
@@ -56,8 +61,10 @@ class Observation:
         times=None,
         operator: Optional[Callable] = None,
         correlated: Optional[bool] = None,
+        *,
+        device=None,
     ):
-        observations = torch.atleast_2d(torch.as_tensor(observations))
+        observations = torch.atleast_2d(as_device_tensor(observations, device))
         device = observations.device
         covariance = torch.as_tensor(covariance, device=device)
         n_time, n_obs = observations.shape

@@ -14,7 +14,9 @@ helpers they share with the JAX package:
 - K6, :func:`window2d_banded` (``csrc/letkf_window2d.cu``): the whole 2-D
   window analysis over a y-sorted observation table, behind
   :func:`letkf_window_analysis_fused_2d` and the x-strips of
-  :func:`tpu_assim_torch.analysis.make_strip_letkf_2d`.
+  :func:`tpu_assim_torch.analysis.make_strip_letkf_2d`; two routes by
+  window size (:func:`window2d_plan`), the Gram matrix in registers
+  (``csrc/cheb_reg.cuh``) or in shared memory (``csrc/cheb_core.cuh``).
 
 K1 does, per grid column: the window of ``nb`` observations around the
 column's rank among the sorted observation coordinates, clamped onto its
@@ -64,6 +66,7 @@ __all__ = [
     "window2d_banded",
     "window2d_inputs",
     "window2d_plain",
+    "window2d_plan",
     "window_analysis_plain",
 ]
 
@@ -825,13 +828,83 @@ def _window2d_lib():
     lib = load_library("letkf_window2d")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window2d_launch.argtypes = (
-        [ptr] * 9 + [i32] * 11 + [f32] * 2 + [i32, ptr])
+        [ptr] * 9 + [i32] * 11 + [f32] * 2 + [i32] * 3 + [ptr])
     lib.window2d_launch.restype = i32
-    lib.window2d_smem_bytes.argtypes = [i32] * 6
+    lib.window2d_smem_bytes.argtypes = [i32] * 7
     lib.window2d_smem_bytes.restype = ctypes.c_size_t
     lib.window2d_error_string.argtypes = [i32]
     lib.window2d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# K6's routes (csrc/letkf_window2d.cu): the register route holds the Gram
+# matrix in registers for windows of at most K6_REG_MAX_NB observations in
+# blocks of K6_REG_WARPS warps; the shared route takes larger windows, up
+# to K6_SMEM_MAX_WARPS warps a block.
+K6_ROUTES = ("register", "shared")
+K6_REG_MAX_NB = 64
+K6_REG_WARPS = 4
+K6_SMEM_MAX_WARPS = 8
+# Blocks that fill the card: 132 SMs, each holding 2-3 of them, several
+# waves over, so that the last wave's imbalance is small.
+_K6_FILL_BLOCKS = 16 * 132
+
+
+def _band_bytes(width: int) -> tuple:
+    """Shared memory of a tile's sorted band (letkf_window2d.cu:band_bytes,
+    key_bytes): the sorted x and slot of each slot, 16-byte aligned; and the
+    sort's 64-bit keys over the width rounded up to a power of 2, which the
+    warps' workspaces overwrite once the band is sorted."""
+    pow2 = 1 << max(width - 1, 0).bit_length()
+    return (8 * width + 15) & ~15, 8 * pow2
+
+
+def _k6_floats_per_warp(route: str, k: int, nb: int, ns: int,
+                        degree: int) -> int:
+    """Shared floats of one column's workspace on ``route``
+    (cheb_reg.cuh:workspace_floats; cheb_core.cuh:workspace_floats plus the
+    window's weights and rows)."""
+    dp1 = degree + 1
+    if route == "register":
+        nbc = (nb + 7) & ~7
+        floats = k * nbc + 4 * (1 + ns) * nbc + ns * k + ns + 4 * dp1
+        return (floats + 3) & ~3
+    ld = k | 1
+    floats = (nb * ld + nb * nb + ns * k + ns + 4 * (1 + ns) * nb
+              + 4 * dp1)
+    return (((floats + 3) & ~3) + 2 * nb + 3) & ~3
+
+
+def window2d_plan(k: int, nb: int, ns: int, degree: int, width: int,
+                  n_tiles: int, tile: int = 128) -> dict:
+    """K6's launch: the route, the warps a block, the blocks a tile
+    (``splits``) and the block's shared memory in bytes.
+
+    Windows of up to ``K6_REG_MAX_NB`` take the register route, larger
+    ones the shared route. The warps are the route's most that fit a
+    Hopper block's shared memory beside the band. A grid of few tiles
+    spreads each tile over up to ``tile / (2 warps)`` blocks (each sorts
+    the band itself; every warp keeps at least two columns) until about
+    ``16 * 132`` blocks are in flight. Raises ``ValueError`` when not even
+    one warp fits."""
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    route = "register" if nb <= K6_REG_MAX_NB else "shared"
+    cap = K6_REG_WARPS if route == "register" else K6_SMEM_MAX_WARPS
+    band, keys = _band_bytes(width)
+    per_warp = 4 * _k6_floats_per_warp(route, k, nb, ns, degree)
+    warps = min(cap, tile, (SMEM_PER_BLOCK - band) // per_warp)
+    if warps < 1 or band + keys > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"window2d: these shapes need {band + max(per_warp, keys)} bytes "
+            f"of shared memory per block; a Hopper block has "
+            f"{SMEM_PER_BLOCK}")
+    splits = 1
+    while (n_tiles * splits < _K6_FILL_BLOCKS and tile % (2 * splits) == 0
+           and tile // (2 * splits) >= 2 * warps):
+        splits *= 2
+    return {"route": route, "warps": warps, "splits": splits,
+            "smem": band + max(warps * per_warp, keys)}
 
 
 def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
@@ -840,11 +913,14 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     n_rows = table.shape[0]
     n_dims, g = grid.shape
     ns, k, _ = sp.shape
-    # the smallest block: the band's sort arrays and one column's workspace
-    _check_launchable("window2d", (table, bands, grid, sp, mean, scal),
-                      lib.window2d_smem_bytes(k, nb, ns, degree, width, 1))
-    from tpu_assim_torch._build import SMEM_PER_BLOCK
-
+    plan = window2d_plan(k, nb, ns, degree, width, g // tile, tile)
+    route = K6_ROUTES.index(plan["route"])
+    smem = lib.window2d_smem_bytes(route, k, nb, ns, degree, width,
+                                   plan["warps"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"window2d: the plan's {plan['smem']} bytes of "
+                           f"shared memory differ from the kernel's {smem}")
+    _check_launchable("window2d", (table, bands, grid, sp, mean, scal), smem)
     nodes, dct = _cheb_tables(degree, table.device)
     out = torch.empty_like(sp)
     with torch.cuda.device(table.device):
@@ -855,7 +931,7 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
             nodes.data_ptr(), dct.data_ptr(), out.data_ptr(), k, n_dims,
             n_rows, g, ns, nb, degree, width, tile, _TAPERS.index(taper),
             int(bool(strict)), taper_support_z(taper, epsilon),
-            float(epsilon), SMEM_PER_BLOCK, stream)
+            float(epsilon), route, plan["warps"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError("window2d kernel launch failed: "
                            + lib.window2d_error_string(err).decode())

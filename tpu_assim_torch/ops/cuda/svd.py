@@ -20,8 +20,11 @@ U is orthogonal to about 1e-6 and the iteration takes the same number of
 sweeps (Jacobi converges quadratically near the end).
 
 :func:`svd_jacobi` runs :func:`svd_jacobi_plain` for CPU tensors and
-launches ``csrc/svd_jacobi.cu`` for CUDA f32 tensors. The kernel's library
-is built at its first launch (:mod:`tpu_assim_torch._build`).
+launches ``csrc/svd_jacobi.cu`` for CUDA f32 tensors (one block per matrix,
+a team of 4 lanes per column pair; :func:`svd_jacobi_plan`). The kernel
+sums its dot products in another order than the plain version, so the two
+agree within rounding, not bit for bit. The kernel's library is built at
+its first launch (:mod:`tpu_assim_torch._build`).
 """
 
 import ctypes
@@ -30,16 +33,32 @@ import functools
 import torch
 
 __all__ = ["LAUNCHES", "eigh_from_svd", "eigh_svd_jacobi", "svd_jacobi",
-           "svd_jacobi_plain"]
+           "svd_jacobi_plain", "svd_jacobi_plan"]
 
 # Launches of the CUDA kernel, counted by the wrapper.
 LAUNCHES = {"svd_jacobi": 0}
 
-# Largest K the kernel takes: one warp per column pair, at most 1024
-# threads a block.
+# Largest K the kernel takes: a team lane holds at most 4 chunks of 4 rows
+# of each of its two columns in registers.
 MAX_K = 64
 # The freeze test's multiple of eps (see the module docstring).
 FREEZE = 8
+# The kernel's teams: 4 lanes per column pair, 8 pairs per warp; a team
+# lane's 16-byte load covers 4 rows, a team's 16.
+_PAIRS_PER_WARP, _CHUNK = 8, 16
+
+
+def svd_jacobi_plan(k: int) -> dict:
+    """K3's launch arithmetic for K x K matrices (csrc/svd_jacobi.cu): the
+    even size ``kp``, the rows padded to 16 (``rows``), the column stride
+    ``ld`` (16 mod 32), the threads of a block (a warp per 8 column pairs)
+    and its shared memory in bytes (A and V, 1/sigma, two seat tables)."""
+    kp = k + k % 2
+    rows = -(-kp // _CHUNK) * _CHUNK
+    ld = rows if rows % 32 == 16 else rows + 16
+    threads = -(-(kp // 2) // _PAIRS_PER_WARP) * 32
+    return {"kp": kp, "rows": rows, "ld": ld, "threads": threads,
+            "smem": (2 * kp * ld + kp) * 4 + 2 * kp * 4}
 
 
 def _seat_source(kp: int) -> list:
@@ -145,6 +164,8 @@ def _svd_lib():
     lib.svd_jacobi_launch.restype = i32
     lib.svd_jacobi_smem_bytes.argtypes = [i32]
     lib.svd_jacobi_smem_bytes.restype = ctypes.c_size_t
+    lib.svd_jacobi_threads.argtypes = [i32]
+    lib.svd_jacobi_threads.restype = i32
     lib.svd_jacobi_error_string.argtypes = [i32]
     lib.svd_jacobi_error_string.restype = ctypes.c_char_p
     return lib
@@ -162,9 +183,14 @@ def _launch_svd(a, sweeps):
     b, k, _ = a.shape
     if k > MAX_K:
         raise ValueError(f"the CUDA SVD kernel takes K <= {MAX_K}; got {k}")
-    kp = k + k % 2
+    plan = svd_jacobi_plan(k)
+    kp = plan["kp"]
     lib = _svd_lib()
     smem = lib.svd_jacobi_smem_bytes(kp)
+    if (smem, lib.svd_jacobi_threads(kp)) != (plan["smem"], plan["threads"]):
+        raise RuntimeError(
+            f"svd_jacobi: the plan {plan} differs from the kernel's "
+            f"{smem} bytes and {lib.svd_jacobi_threads(kp)} threads")
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"K={k} needs {smem} bytes of shared memory per "
                          f"block; Hopper has {SMEM_PER_BLOCK}")

@@ -13,11 +13,28 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["EnsembleState", "StateError"]
+__all__ = ["EnsembleState", "StateError", "as_device_tensor"]
 
 
 class StateError(Exception):
     """Raised when a state fails validation."""
+
+
+def as_device_tensor(data, device=None) -> torch.Tensor:
+    """``data`` as a tensor: a tensor on its own device unless ``device``
+    is given; anything else on ``device``, by default the card. Without a
+    card and without ``device``, non-tensor data raises rather than land
+    on the CPU unasked."""
+    if isinstance(data, torch.Tensor):
+        return data if device is None else data.to(device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "this data is not a tensor, so it goes to the card by "
+                "default, and this process sees no CUDA device; pass "
+                "device=\"cpu\" to keep it on the CPU")
+        device = "cuda"
+    return torch.as_tensor(data, device=device)
 
 
 class EnsembleState:
@@ -31,6 +48,10 @@ class EnsembleState:
         columns; default ``arange(grid)[:, None]``.
     var_names : tuple of variable names; default ``range(var)``.
     ens_members : tuple of ensemble-member labels; default ``range(ens)``.
+    device : where ``data`` goes. A tensor stays on its device unless
+        ``device`` is given; anything else (numpy, lists) goes to
+        ``device``, by default the card (``"cuda"``), as ``jnp.asarray``
+        puts data on the accelerator. Without a card pass ``device="cpu"``.
 
     ``times`` and ``grid_coords`` move to the device of ``data``.
     """
@@ -42,8 +63,10 @@ class EnsembleState:
         grid_coords=None,
         var_names: Optional[Tuple] = None,
         ens_members: Optional[Tuple] = None,
+        *,
+        device=None,
     ):
-        data = torch.as_tensor(data)
+        data = as_device_tensor(data, device)
         if data.ndim != 4:
             raise StateError(
                 "EnsembleState data must be 4-D (var, time, ensemble, grid), "
