@@ -32,12 +32,14 @@ Phases (one line each; any failure exits non-zero):
     against f64 eigh               config 7) against f64 eigh
  20 times of K6 and of the 2-D analyses
  21 K7 (two-sided Jacobi eigh)     23 the class API: LKETKF.assimilate
-    against plain on [10^4, 40,       (twosided: 3 K7 launches), a cheb
-    40] batches of seven kinds        smoother, KETKF (config 4), and
+    against plain, bit for bit,       (twosided: 3 K7 launches), a cheb
+    on [10^4, 40, 40] batches of      smoother, KETKF (config 4), and
+    seven kinds
  22 bench config 11 (LKETKF,          MultiplicativeInflation around
     Gauss l=2, window): eigh via      LKETKF, against f64
-    K3, via K7, Tanh via K7, cheb  24 times of K7 and of the config-11
-    against f64                       analyses; a torch.profiler window
+    K3, via K7, Tanh via K7, cheb  24 times of K7 (also alone, and at
+    against f64                       [4096, 40, 40]) and of the config-11
+                                      analyses; a torch.profiler window
  25 K8 (halo exchange) against     26 the halo analyses on 8 virtual
     plain, bit for bit: config-3      shards: config 3 windowed (K1) and
     shape, rings of 2 and 3, f64,     top-k through K8 + K4 (rdma equal
@@ -45,8 +47,9 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
-Phase 1 also prints each K3 and K6 kernel's registers, shared memory and
-spills (nvcc -Xptxas -v) and fails on a spill of K6's register route;
+Phase 1 also prints each K3, K6 and K7 kernel's registers, shared memory
+and spills (nvcc -Xptxas -v) and fails on a spill of K6's register route
+or of any K7 instance;
 phase 17 runs K6 on both of its routes (register, shared) and prints the
 route of each case.
 Then the card's name and power limit, one JSON line with each kernel's
@@ -170,11 +173,14 @@ def card():
 
 def resources_note():
     """Registers, static shared memory and spills of every kernel that the
-    K3 and K6 sources built, as nvcc -Xptxas -v reports them; for K6's
+    K3, K6 and K7 sources built, as nvcc -Xptxas -v reports them; for K6's
     register route also the warps an SM holds at that register count (4
-    warps a block). Fails on any spill of that route."""
+    warps a block); K7's 32 instances (Kp = 2..64) as registers by Kp,
+    K7 at Kp = 40 in full. Fails on any spill of K6's register route or of
+    K7."""
     notes = []
-    for src in ("svd_jacobi", "letkf_window2d"):
+    for src in ("svd_jacobi", "letkf_window2d", "eigh_jacobi"):
+        k7_regs = {}
         for name, regs, smem, st, ld in _build.kernel_resources(
                 _build.ptxas_report(src)):
             note = (f"{name} {regs} registers, {smem} B static smem, spills "
@@ -184,7 +190,18 @@ def resources_note():
                       f"K6 register route spills: {note}")
                 blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.K6_REG_WARPS)
                 note += f" ({blocks * k1.K6_REG_WARPS} warps/SM by registers)"
+            if name.startswith("eigh_jacobi_kernel"):
+                check(st == 0 and ld == 0, f"K7 spills: {note}")
+                k7_regs[int(name.split("<")[1].rstrip(">"))] = regs
+                if name != "eigh_jacobi_kernel<40>":
+                    continue
+                note += (f" ({65536 // (-(-regs // 8) * 8 * 32)} warps/SM by "
+                         f"registers)")
             notes.append(note)
+        if k7_regs:
+            notes.append("K7 registers by Kp " + ", ".join(
+                f"{kp}: {r}" for kp, r in sorted(k7_regs.items()))
+                + " (no spill)")
     return "; ".join(notes)
 
 
@@ -1369,10 +1386,11 @@ def eigh_factors(a, ev, vec):
 
 def eigh_vs_plain(a, label, factors=True):
     """K7 through ``eigh_jacobi`` (one counted launch) against its plain
-    version on one batch: identical NaN entries in the eigenvalues,
-    eigenvalues within TOL of max|lambda|; on the matrices without NaN the
-    reconstruction and the orthogonality, checked against FACTOR_TOL where
-    ``factors``. Returns a dict of the figures and the kernel's output."""
+    version on one batch: identical NaN entries in the eigenvalues, and bit
+    for bit the same eigenvalues, eigenvectors (of the matrices without NaN)
+    and sweeps run; on the matrices without NaN the reconstruction and the
+    orthogonality, checked against FACTOR_TOL where ``factors``. Returns a
+    dict of the figures and the kernel's output."""
     before = k7.LAUNCHES["eigh_jacobi"]
     ev, vec, run = k7.eigh_jacobi(a, SWEEPS, with_sweeps=True)
     torch.cuda.synchronize()
@@ -1385,12 +1403,17 @@ def eigh_vs_plain(a, label, factors=True):
     if factors:
         check(rec <= FACTOR_TOL and orth <= FACTOR_TOL,
               f"{label}: reconstruction {rec!r}, orthogonality {orth!r}")
-    return {"err": err, "rel": rel, "rec": rec, "orth": orth,
-            "sweeps": int(torch.clamp(run, max=SWEEPS).max()),
-            "capped": int((run > SWEEPS).sum()),
-            "same_sweeps": bool(torch.equal(run, run_p)),
-            "vec_diff": float((vec[fin] - vec_p[fin]).abs().max()),
-            "out": (ev, vec, run)}
+    f = {"err": err, "rel": rel, "rec": rec, "orth": orth,
+         "sweeps": int(torch.clamp(run, max=SWEEPS).max()),
+         "capped": int((run > SWEEPS).sum()),
+         "same_sweeps": bool(torch.equal(run, run_p)),
+         "vec_diff": float((vec[fin] - vec_p[fin]).abs().max()),
+         "out": (ev, vec, run)}
+    check(f["err"] == 0 and f["vec_diff"] == 0 and f["same_sweeps"],
+          f"{label}: K7 not bit for bit its plain version: eigenvalues "
+          f"{f['err']!r}, eigenvectors {f['vec_diff']!r}, sweeps identical "
+          f"{f['same_sweeps']}")
+    return f
 
 
 def eigh_note(label, f):
@@ -1496,9 +1519,23 @@ def kernelized_phases(dev, gpu, loc, w, kinds, launches):
           f"K7: the NaN spread to {int(bad.sum())} matrices")
     notes.append(f"NaN batch [512]: NaN confined to its matrix, the other "
                  f"511 {f['err']!r} from plain")
+    # K7's other layouts (eigh_jacobi_plan): Kp <= 32 (V^T in registers),
+    # 32 < Kp <= 42 (V^T's columns past 32 in A's rows), Kp > 42 (two V^T
+    # columns a lane); bit for bit its plain version on each
+    sizes = (2, 31, 34, 42, 44, 64)
+    for k in sizes:
+        a = on_card(rng.normal(size=(256, k, k)).astype(np.float32))
+        a = (a + a.mT) / 2
+        out = k7.eigh_jacobi(a, SWEEPS, with_sweeps=True)
+        ref = k7.eigh_jacobi_plain(a, SWEEPS, with_sweeps=True)
+        check(all(torch.equal(x, y) for x, y in zip(out, ref)),
+              f"K7 at K = {k}: not bit for bit its plain version")
+    notes.append(f"K = {', '.join(map(str, sizes))} ([256, K, K] "
+                 f"symmetric): bit for bit")
     kinds["eigh_jacobi"] = {"max_abs_err": err_k7}
     log(21, f"K7 eigh_jacobi against plain, [{g}, 40, 40] f32, cap "
-        f"{SWEEPS}: " + "; ".join(notes))
+        f"{SWEEPS}, every batch bit for bit its plain version (eigenvalues, "
+        f"eigenvectors, sweeps run; checked): " + "; ".join(notes))
 
     # -- 22. config 11 at full width ---------------------------------------
     t0 = time.perf_counter()
@@ -1617,18 +1654,39 @@ def kernelized_phases(dev, gpu, loc, w, kinds, launches):
     sweeps_run = int(torch.clamp(gram_run, max=SWEEPS).sum())
     t["bound"] = bound(nbytes(grams) * 2 + grams.shape[0] * kp * 4,
                        sweeps_run * (kp - 1) * per_round)
+    # the kernel alone (no sort) on the Grams and on the class API's chunk
+    # shape, [4096, 40, 40] (the first 4096 Grams): time per matrix-round
+    # (sweeps each matrix ran x (Kp - 1) rounds) over the card and per SM,
+    # and the factor over the bound
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    notes = []
+    for a, a_run in ((grams, gram_run),
+                     (grams[:4096].contiguous(), gram_run[:4096])):
+        rounds = int(torch.clamp(a_run, max=SWEEPS).sum()) * (kp - 1)
+        b_ms, by = bound(nbytes(a) * 2 + a.shape[0] * kp * 4,
+                         rounds * per_round)
+        alone = median_ms(lambda: k7._launch_eigh(a, SWEEPS))
+        notes.append(
+            f"[{a.shape[0]}, 40, 40]: kernel alone {alone!r} ms = "
+            f"{alone * 1e6 / rounds!r} ns a matrix-round over the card, "
+            f"{alone * 1e6 * sms / rounds!r} ns on one of {sms} SMs; "
+            f"{alone / b_ms!r} x its bound {b_ms!r} ms ({by})")
     per_call = {}
     for label, fn in (
             ("eigh via K3", lambda: analysis11(loc, nb, gauss, x32)),
             ("eigh via K7", lambda: twosided(analysis11, loc, nb, gauss,
                                              x32)),
-            ("cheb", lambda: cheb11(loc, nb, gauss, x32))):
+            ("cheb", lambda: cheb11(loc, nb, gauss, x32)),
+            ("LKETKF.assimilate via K7 (3 chunks)", lambda: twosided(
+                LKETKF(loc, gauss, INF, max_obs=nb,
+                       selection="window").assimilate, state, obs))):
         per_call[label] = median_ms(fn, reps=10, inner=3)
     log(24, f"eigh_jacobi [{g}, 40, 40] config-11 Grams: kernel {t['ms']!r} "
         f"ms, plain {t['plain_ms']!r} ms, torch.linalg.eigh "
         f"{t['library_ms']!r} ms (one call), bound {t['bound'][0]!r} ms "
         f"({t['bound'][1]}) at {sweeps_run / grams.shape[0]!r} sweeps per "
         f"matrix on average [{gpu}]")
+    log(24, "K7 on the config-11 Grams: " + "; ".join(notes) + f" [{gpu}]")
     log(24, "config-11 analysis per call: " + "; ".join(
         f"{k} {v!r} ms = {g / v * 1e3!r} grid-points/s"
         for k, v in per_call.items()) + f" [{gpu}]")

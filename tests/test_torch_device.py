@@ -9,7 +9,8 @@ kernels, on the CPU:
 - K6's plan (``window2d_plan``): every window from 8 to 72 gets a route
   whose block fits a Hopper block's shared memory, the register route up
   to its bound, and grids of few tiles spread over several blocks a tile;
-- K3's plan (``svd_jacobi_plan``): every K up to ``MAX_K``;
+- K3's plan (``svd_jacobi_plan``) and K7's (``eigh_jacobi_plan``): every
+  K up to ``MAX_K``;
 - the parse of nvcc's resource report that ``chip_smoke.py`` prints.
 
 Whether a card exists is decided inside each test.
@@ -21,6 +22,7 @@ import torch
 
 import tpu_assim_torch as TT
 from tpu_assim_torch._build import SMEM_PER_BLOCK
+from tpu_assim_torch.ops.cuda import jacobi as k7
 from tpu_assim_torch.ops.cuda import letkf as k1
 from tpu_assim_torch.ops.cuda import svd as k3
 
@@ -165,4 +167,27 @@ def test_svd_jacobi_plan(k):
     assert plan["rows"] // 16 <= 4
     assert plan["ld"] % 32 == 16 and plan["ld"] >= plan["rows"]
     assert plan["smem"] == 4 * (2 * kp * plan["ld"] + kp) + 8 * kp
+    assert plan["smem"] <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("k", range(1, k7.MAX_K + 1))
+def test_eigh_jacobi_plan(k):
+    """K7's block: one warp, one matrix, a lane per seat pair; V^T's columns
+    in registers (two a lane above 32) or, for 32 < Kp <= 42, the ones past
+    32 as extra columns of A, one for each lane without a seat pair; A's row
+    stride odd (a column walk hits 32 distinct banks) and room for A, the
+    extra columns, the zero column and the pair table within a block's
+    shared memory."""
+    plan = k7.eigh_jacobi_plan(k)
+    kp = k + k % 2
+    assert plan["kp"] == kp
+    assert (plan["threads"], plan["matrices"]) == (32, 1)
+    assert kp // 2 <= plan["threads"]
+    extra, regs = plan["extra"], plan["vt_regs"]
+    assert extra <= plan["threads"] - kp // 2
+    assert regs * 32 + extra >= kp and (extra == 0 or regs == 1)
+    assert extra == (kp - 32 if 32 < kp <= 42 else 0)
+    assert plan["ld"] % 2 == 1 and plan["ld"] >= kp + extra + 1
+    assert len({r * plan["ld"] % 32 for r in range(32)}) == 32
+    assert plan["smem"] == 16 * (kp // 2) + 4 * kp * plan["ld"]
     assert plan["smem"] <= SMEM_PER_BLOCK

@@ -36,7 +36,15 @@ phases 21 and 22 measure both thresholds (sweeps, times, errors; PERF.md).
 
 :func:`eigh_jacobi` runs :func:`eigh_jacobi_plain` for CPU tensors and
 launches ``csrc/eigh_jacobi.cu`` for CUDA f32 tensors; the kernel's library
-is built at its first launch (:mod:`tpu_assim_torch._build`).
+is built at its first launch (:mod:`tpu_assim_torch._build`). The launch
+gives each matrix one warp (a block of 32 threads, :func:`eigh_jacobi_plan`):
+a lane per seat pair computes its rotation, the two-sided update of A runs
+one 2 x 2 block at a time in registers (rows, then columns: the operations
+of the plain version in its order), V^T's rows turn in the same pass, and
+the kernel agrees with :func:`eigh_jacobi_plain` bit for bit on the card.
+(On the CPU, PyTorch's vectorized f32 square root can round otherwise than
+the correctly rounded one the card and the kernel use, so there the plain
+version may differ in the last bit.)
 """
 
 import ctypes
@@ -46,7 +54,7 @@ import torch
 
 from tpu_assim_torch.ops.cuda.svd import _check_square, _seat_source
 
-__all__ = ["LAUNCHES", "eigh_jacobi", "eigh_jacobi_plain"]
+__all__ = ["LAUNCHES", "eigh_jacobi", "eigh_jacobi_plain", "eigh_jacobi_plan"]
 
 # Launches of the CUDA kernel, counted by the wrapper.
 LAUNCHES = {"eigh_jacobi": 0}
@@ -55,6 +63,23 @@ LAUNCHES = {"eigh_jacobi": 0}
 MAX_K = 64
 # The freeze test's multiple of eps (see the module docstring).
 FREEZE = 8
+
+
+def eigh_jacobi_plan(k: int) -> dict:
+    """K7's launch arithmetic for K x K matrices (csrc/eigh_jacobi.cu): the
+    even size ``kp``, the threads of a block (one warp) and the matrices it
+    takes (one), V^T's columns that ride in A's rows (``extra``: 32 <
+    Kp <= 42, one for each lane past Kp/2, whose block pairs it with the
+    zero column), the columns a lane holds in registers (``vt_regs``), the
+    odd row stride ``ld`` of A (its columns, the extra ones, the zero
+    column) and the block's shared memory in bytes (the pair table, a
+    float4 per pair, and A)."""
+    kp = k + k % 2
+    extra = kp - 32 if 32 < kp and kp - 32 <= 32 - kp // 2 else 0
+    ld = (kp + extra) | 1
+    return {"kp": kp, "threads": 32, "matrices": 1, "extra": extra,
+            "vt_regs": 2 if kp > 32 and not extra else 1, "ld": ld,
+            "smem": 16 * (kp // 2) + 4 * kp * ld}
 
 
 def _pad_odd(a3: torch.Tensor) -> torch.Tensor:
@@ -160,6 +185,8 @@ def _eigh_lib():
     lib.eigh_jacobi_launch.restype = i32
     lib.eigh_jacobi_smem_bytes.argtypes = [i32]
     lib.eigh_jacobi_smem_bytes.restype = ctypes.c_size_t
+    lib.eigh_jacobi_threads.argtypes = [i32]
+    lib.eigh_jacobi_threads.restype = i32
     lib.eigh_jacobi_error_string.argtypes = [i32]
     lib.eigh_jacobi_error_string.restype = ctypes.c_char_p
     return lib
@@ -175,16 +202,17 @@ def _launch_eigh(a, sweeps, freeze=FREEZE):
             "(ROADMAP.md Queue 1, the autograd item)")
     if a.dtype != torch.float32:
         raise TypeError(f"the CUDA eigh kernel takes f32; got {a.dtype}")
-    from tpu_assim_torch._build import SMEM_PER_BLOCK
-
     b, kp, _ = a.shape
-    if kp > MAX_K:
-        raise ValueError(f"the CUDA eigh kernel takes K <= {MAX_K}; got {kp}")
+    if kp > MAX_K or kp % 2:
+        raise ValueError(f"the CUDA eigh kernel takes an even K <= {MAX_K} "
+                         f"(odd K padded); got {kp}")
+    plan = eigh_jacobi_plan(kp)
     lib = _eigh_lib()
     smem = lib.eigh_jacobi_smem_bytes(kp)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"K={kp} needs {smem} bytes of shared memory per "
-                         f"block; Hopper has {SMEM_PER_BLOCK}")
+    if (smem, lib.eigh_jacobi_threads(kp)) != (plan["smem"], plan["threads"]):
+        raise RuntimeError(
+            f"eigh_jacobi: the plan {plan} differs from the kernel's "
+            f"{smem} bytes and {lib.eigh_jacobi_threads(kp)} threads")
     evals = torch.empty(b, kp, dtype=a.dtype, device=a.device)
     vecs = torch.empty(b, kp, kp, dtype=a.dtype, device=a.device)
     run = torch.empty(b, dtype=torch.int32, device=a.device)
