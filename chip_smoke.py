@@ -22,7 +22,8 @@ Phases (one line each; any failure exits non-zero):
      2^20 columns)                 K3 and with LAPACK
  12 K4 (cheb) against plain     15 the class API: LETKF.assimilate through
  13 K5 (Newton-Schulz) against     K4 (filter, smoother) and K1 (smoother)
-    plain                          against f64 eigh
+    plain, [10^4, 12, 40] and      against f64 eigh
+    [256, nb, k], nb 1 to 48
  14 cheb and pallas analyses    16 times of K4, K5 and the class API
     against f64 eigh
  17 K6 (2-D window) against     19 bench config 8 (1024 x 1024, 10^5 obs,
@@ -47,11 +48,12 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
-Phase 1 also prints each K3, K6 and K7 kernel's registers, shared memory
-and spills (nvcc -Xptxas -v) and fails on a spill of K6's register route
-or of any K7 instance;
-phase 17 runs K6 on both of its routes (register, shared) and prints the
-route of each case.
+Phase 1 also prints each K3, K5, K6 and K7 kernel's registers, shared
+memory and spills (nvcc -Xptxas -v) and fails on a spill of K5, of K6's
+register route or of any K7 instance;
+phase 13 runs K5 on both of its routes (register, shared) and at every
+packing of its warps, phase 17 K6 on both of its routes, each case with
+its route; phase 16 takes a torch.profiler window of the pallas analysis.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -173,14 +175,16 @@ def card():
 
 def resources_note():
     """Registers, static shared memory and spills of every kernel that the
-    K3, K6 and K7 sources built, as nvcc -Xptxas -v reports them; for K6's
-    register route also the warps an SM holds at that register count (4
-    warps a block); K7's 32 instances (Kp = 2..64) as registers by Kp,
-    K7 at Kp = 40 in full. Fails on any spill of K6's register route or of
-    K7."""
+    K3, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports them; for
+    K6's register route and K5's at nb = NB also the warps an SM holds at
+    that register count (4 warps a block); K5's register route (NB = 1..32)
+    and K7's 32 instances (Kp = 2..64) as registers by size, K5 at NB and
+    K7 at Kp = 40 in full. Fails on any spill of K5, of K6's register route
+    or of K7."""
     notes = []
-    for src in ("svd_jacobi", "letkf_window2d", "eigh_jacobi"):
-        k7_regs = {}
+    for src in ("svd_jacobi", "letkf_nbh_ns", "letkf_window2d",
+                "eigh_jacobi"):
+        by_size = {}
         for name, regs, smem, st, ld in _build.kernel_resources(
                 _build.ptxas_report(src)):
             note = (f"{name} {regs} registers, {smem} B static smem, spills "
@@ -190,17 +194,28 @@ def resources_note():
                       f"K6 register route spills: {note}")
                 blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.K6_REG_WARPS)
                 note += f" ({blocks * k1.K6_REG_WARPS} warps/SM by registers)"
+            if name.startswith("nbh_ns_"):
+                check(st == 0 and ld == 0, f"K5 spills: {note}")
+            if name.startswith("nbh_ns_reg_kernel"):
+                by_size[int(name.split("<")[1].rstrip(">"))] = regs
+                if name != f"nbh_ns_reg_kernel<{NB}>":
+                    continue
+                blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.K5_MAX_WARPS)
+                note += (f" ({min(blocks * k1.K5_MAX_WARPS, 64)} warps/SM by "
+                         f"registers)")
             if name.startswith("eigh_jacobi_kernel"):
                 check(st == 0 and ld == 0, f"K7 spills: {note}")
-                k7_regs[int(name.split("<")[1].rstrip(">"))] = regs
+                by_size[int(name.split("<")[1].rstrip(">"))] = regs
                 if name != "eigh_jacobi_kernel<40>":
                     continue
                 note += (f" ({65536 // (-(-regs // 8) * 8 * 32)} warps/SM by "
                          f"registers)")
             notes.append(note)
-        if k7_regs:
-            notes.append("K7 registers by Kp " + ", ".join(
-                f"{kp}: {r}" for kp, r in sorted(k7_regs.items()))
+        if by_size:
+            label = "K5 registers by NB " if src == "letkf_nbh_ns" else (
+                "K7 registers by Kp ")
+            notes.append(label + ", ".join(
+                f"{n}: {r}" for n, r in sorted(by_size.items()))
                 + " (no spill)")
     return "; ".join(notes)
 
@@ -299,6 +314,18 @@ def ns_inputs(args):
     zh, yh, sp, mean = args
     return [t.contiguous() for t in (zh.permute(2, 0, 1), yh.T, sp[0].T,
                                      mean[0])]
+
+
+def ns_random(dev, g, nb, seed, k=40):
+    """K5's inputs [g, nb, k], [g, nb], [g, k], [g] from a seed: weights
+    uniform in [0, 1), perturbations and innovations standard normal."""
+    rng = np.random.RandomState(seed)
+    sw = np.sqrt(rng.rand(g, nb))
+    arrays = (rng.normal(size=(g, nb, k)) * sw[:, :, None],
+              rng.normal(size=(g, nb)) * sw, rng.normal(size=(g, k)),
+              rng.normal(size=g))
+    return [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in arrays]
 
 
 def run_cheb(args, degree, plain=False):
@@ -904,9 +931,28 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     n_nan5 = int(torch.isnan(out).any(1).sum())
     check(n_nan5 == n_nan, f"K5 NaN batch: {n_nan5} NaN columns, K4 {n_nan}")
     notes.append(f"strict overflow {n_nan5} NaN columns identical")
+    # both routes and every packing of a warp (32 // nb columns up to nb
+    # 32), a NaN column among the packed ones; two other ensemble sizes
+    for nb, k in ((1, 40), (5, 40), (8, 40), (16, 40), (17, 40), (32, 40),
+                  (33, 40), (48, 40), (3, 9), (32, 64)):
+        a = ns_random(dev, 256, nb, SEED + 10 + nb, k)
+        a[0][3] = float("nan")
+        plan = k1.nbh_ns_plan(k, nb, 256)
+        before = k1.LAUNCHES["nbh_ns"]
+        out = run_ns(a, NS_ITERS)
+        torch.cuda.synchronize()
+        check(k1.LAUNCHES["nbh_ns"] == before + 1, "K5 launch not counted")
+        e, rel = compare(out, run_ns(a, NS_ITERS, plain=True),
+                         f"K5 [256, {nb}, {k}]")
+        n_bad = int(torch.isnan(out).any(1).sum())
+        check(n_bad == 1, f"K5 [256, {nb}, {k}]: {n_bad} NaN columns, not 1")
+        err_k5 = max(err_k5, e)
+        notes.append(f"[256, {nb}, {k}] ({plan['route']}, "
+                     f"{plan['cols_per_warp']} a warp) {e!r} (rel {rel!r})")
     kinds["nbh_ns"] = {"max_abs_err": err_k5}
-    log(13, f"K5 nbh_ns [{g}, {NB}, 40] against plain, max abs err: "
-        + "; ".join(notes))
+    log(13, f"K5 nbh_ns [{g}, {NB}, 40] and [256, nb, k] against plain, "
+        f"{NS_ITERS} iterations unless said, max abs err (each with 1 NaN "
+        "column, identical): " + "; ".join(notes))
 
     # -- 14. cheb and pallas analyses against the f64 oracle --------------
     t0 = time.perf_counter()
@@ -995,8 +1041,29 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     for name in ("nbh_cheb", "nbh_ns"):
         t = kinds[name]
         log(16, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
-            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}) [{gpu}]")
-    log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms [{gpu}]")
+            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}), "
+            f"{t['ms'] / t['bound'][0]:.1f}x [{gpu}]")
+    t = kinds["nbh_ns"]
+    ns_product = t["ms"] * 1e6 / (g * (5 * NS_ITERS + 2))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(16, f"nbh_ns [{g}, {NB}, 40] x {NS_ITERS}: {ns_product!r} ns a "
+        f"column-product (an nb x nb product of one column, 5 n + 2 a "
+        f"column) over the card, {ns_product * sms!r} ns on one of {sms} "
+        f"SMs [{gpu}]")
+    bound_k4_s = bound(nbytes(*a6) + nbytes(a6[2]),
+                       g * cheb_flops(40, 36, 6, 48))
+    log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms, bound "
+        f"{bound_k4_s[0]!r} ms ({bound_k4_s[1]}), "
+        f"{ms_k4_s / bound_k4_s[0]:.1f}x [{gpu}]")
+    wall, busy, rows = device_profile(lambda: pallas(*wt))
+    check(busy > 0, "profile of the pallas analysis: no device time")
+    k5_ms = sum(ms for name, ms in rows if "nbh_ns" in name)
+    check(k5_ms > 0, "profile of the pallas analysis: no K5 kernel")
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
+    log(16, f"pallas analysis (torch.profiler, 5 calls): wall {wall!r} "
+        f"ms/call, device {busy!r} ms/call (idle {1 - busy / wall:.1%}), K5 "
+        f"{k5_ms!r} ms/call ({k5_ms / busy:.1%} of device time); kernels, "
+        f"ms/call: {top} [{gpu}]")
     log(16, f"per call: LETKF(cheb).assimilate [1, 1, 40, {g}] {ms_class!r} "
         f"ms; make_letkf_analysis cheb {ms_cheb!r} ms, pallas {ms_pallas!r} "
         f"ms [{gpu}]")

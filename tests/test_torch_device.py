@@ -11,6 +11,9 @@ kernels, on the CPU:
   to its bound, and grids of few tiles spread over several blocks a tile;
 - K3's plan (``svd_jacobi_plan``) and K7's (``eigh_jacobi_plan``): every
   K up to ``MAX_K``;
+- K5's plan (``nbh_ns_plan``): every nb from 1 to 40 gets the route of
+  its size, columns packed a lane per row on the register route, a block
+  within a Hopper block's shared memory, and blocks that cover the grid;
 - the parse of nvcc's resource report that ``chip_smoke.py`` prints.
 
 Whether a card exists is decided inside each test.
@@ -191,3 +194,46 @@ def test_eigh_jacobi_plan(k):
     assert len({r * plan["ld"] % 32 for r in range(32)}) == 32
     assert plan["smem"] == 16 * (kp // 2) + 4 * kp * plan["ld"]
     assert plan["smem"] <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("nb", range(1, 41))
+def test_nbh_ns_plan(nb):
+    """K5's launch: the register route up to K5_REG_MAX_NB with 32 // nb
+    columns a warp (a lane per row), the shared route beyond with one; the
+    most warps up to K5_MAX_WARPS whose column slices fit a block's shared
+    memory; on the register route slices 4 mod 8 floats long, so that the
+    broadcasts of up to 8 packed columns start in different bank quads;
+    and blocks that cover g exactly."""
+    for k in (1, 9, 40, 64):
+        for g in (1, 37, 256, 10000):
+            plan = k1.nbh_ns_plan(k, nb, g)
+            register = nb <= k1.K5_REG_MAX_NB
+            assert plan["route"] == ("register" if register else "shared")
+            assert plan["nb_t"] == (nb if register else None)
+            cols = plan["cols_per_warp"]
+            assert cols == (32 // nb if register else 1)
+            assert not register or cols * nb <= 32 < (cols + 1) * nb
+            floats = k1._k5_col_floats(plan["route"], k, nb)
+            nbp = -(-nb // 4) * 4
+            if register:
+                assert floats % 8 == 4
+                assert floats >= k * nbp + k + 3 * nbp + 4 * nb * nbp
+                lanes = min(cols, 8)
+                assert len({c * floats % 32 for c in range(lanes)}) == lanes
+            else:
+                assert floats % 4 == 0
+                assert floats >= nb * k + k + 4 * nb + 6 * nb * nb
+            per_warp = 4 * cols * floats
+            assert plan["smem"] == plan["warps"] * per_warp
+            assert plan["smem"] <= SMEM_PER_BLOCK
+            assert 1 <= plan["warps"] <= k1.K5_MAX_WARPS
+            assert (plan["warps"] == k1.K5_MAX_WARPS
+                    or 2 * plan["warps"] * per_warp > SMEM_PER_BLOCK)
+            per_block = plan["warps"] * cols
+            assert (plan["blocks"] - 1) * per_block < g <= (
+                plan["blocks"] * per_block)
+
+
+def test_nbh_ns_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.nbh_ns_plan(4096, 40, 1)

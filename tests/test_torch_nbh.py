@@ -137,9 +137,10 @@ def test_letkf_weights_dense_newton(rng):
 # -- K4: the Chebyshev solve over gathered neighborhoods, f32 ----------------
 
 def nbh_case(rng, k=9, g=37, nb=6, ns=1, zero_cols=(), nan_cols=()):
-    """Scaled neighborhoods [nb, k, g], innovations [nb, g], state slices."""
+    """Scaled neighborhoods [nb, k, g], innovations [nb, g], state slices;
+    the last two slots empty (zero weight), but never the first."""
     w = rng.rand(nb, g)
-    w[nb - 2:] = 0.0
+    w[max(nb - 2, 1):] = 0.0
     w[:, list(zero_cols)] = 0.0
     sw = np.sqrt(w)
     zh = rng.normal(size=(nb, k, g)) * sw[:, None, :]
@@ -224,9 +225,13 @@ def fused_both(c, num_iters, inf=1.1):
     return out, np.asarray(ref)
 
 
+@pytest.mark.parametrize("nb", [1, 2, 6, 12, 16, 32, 33])
 @pytest.mark.parametrize("num_iters", [10, 25])
-def test_fused_wrapper_matches_jax_kernel(rng, num_iters):
-    c = nbh_case(rng)
+def test_fused_wrapper_matches_jax_kernel(rng, num_iters, nb):
+    """nb 6 as before; nb 1, 2, 12, 16 and 32, which pack 32, 16, 2, 2
+    and 1 columns into a warp on K5's register route; and 33, the first nb
+    of its shared route."""
+    c = nbh_case(rng, nb=nb)
     before = dict(T.LAUNCHES)
     out, ref = fused_both(c, num_iters)
     assert out.dtype == torch.float32 and out.shape == ref.shape == (37, 9)

@@ -10,7 +10,9 @@ helpers they share with the JAX package:
   ``[nb, k, g]``, shared by ``ns`` stacked state slices;
 - K5, :func:`letkf_nbh_analysis_fused` (``csrc/letkf_nbh_ns.cu``): the
   Woodbury solve by Newton-Schulz iterations and apply over neighborhoods
-  gathered as ``[g, nb, k]``;
+  gathered as ``[g, nb, k]``; two routes by ``nb`` (:func:`nbh_ns_plan`),
+  a lane per row with the iterates' rows in registers, or one warp a
+  column in shared memory;
 - K6, :func:`window2d_banded` (``csrc/letkf_window2d.cu``): the whole 2-D
   window analysis over a y-sorted observation table, behind
   :func:`letkf_window_analysis_fused_2d` and the x-strips of
@@ -59,6 +61,7 @@ __all__ = [
     "max_in_support_2d",
     "nbh_cheb_plain",
     "nbh_fused_plain",
+    "nbh_ns_plan",
     "raise_if_overflow",
     "required_obs_block",
     "required_obs_block_2d",
@@ -660,29 +663,82 @@ def _nbh_ns_lib():
     lib = load_library("letkf_nbh_ns")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nbh_ns_launch.argtypes = (
-        [ptr] * 5 + [i32] * 4 + [ctypes.c_float, i32, ptr])
+        [ptr] * 5 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr])
     lib.nbh_ns_launch.restype = i32
-    lib.nbh_ns_smem_bytes_per_col.argtypes = [i32, i32]
-    lib.nbh_ns_smem_bytes_per_col.restype = ctypes.c_size_t
+    lib.nbh_ns_smem_bytes.argtypes = [i32, i32, i32]
+    lib.nbh_ns_smem_bytes.restype = ctypes.c_size_t
+    lib.nbh_ns_cols_per_warp.argtypes = [i32]
+    lib.nbh_ns_cols_per_warp.restype = i32
     lib.nbh_ns_error_string.argtypes = [i32]
     lib.nbh_ns_error_string.restype = ctypes.c_char_p
     return lib
 
 
+# K5's routes (csrc/letkf_nbh_ns.cu): the register route takes nb up to
+# K5_REG_MAX_NB, a lane per row and 32 // nb columns a warp, nb a template
+# argument; the shared route one warp a column beyond. Both take up to
+# K5_MAX_WARPS warps a block.
+K5_REG_MAX_NB = 32
+K5_MAX_WARPS = 4
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _k5_col_floats(route: str, k: int, nb: int) -> int:
+    """Shared floats of one column's slice on ``route``
+    (letkf_nbh_ns.cu:reg_col_floats, smem_col_floats)."""
+    if route == "shared":
+        return _round4(nb * k + k + 4 * nb + 6 * nb * nb)
+    nbp = _round4(nb)
+    ld = nbp if (nbp // 4) % 2 else nbp + 4
+    floats = k * nbp + _round4(k) + 3 * nbp + 4 * nb * ld
+    return floats if floats % 8 else floats + 4
+
+
+def nbh_ns_plan(k: int, nb: int, g: int) -> dict:
+    """K5's launch for ``g`` columns of ``nb`` observations and ``k``
+    members: the route, the template argument ``nb_t`` (None on the
+    shared route), the columns a warp, the warps a block (the most up to
+    ``K5_MAX_WARPS`` whose slices fit a Hopper block's shared memory), the
+    block's shared memory in bytes and the blocks that cover ``g``. Raises
+    ``ValueError`` when not even one warp fits."""
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    route = "register" if nb <= K5_REG_MAX_NB else "shared"
+    cols = 32 // nb if route == "register" else 1
+    per_warp = 4 * cols * _k5_col_floats(route, k, nb)
+    if per_warp > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"nbh_ns: these shapes need {per_warp} bytes of shared memory "
+            f"per block; a Hopper block has {SMEM_PER_BLOCK}")
+    warps = K5_MAX_WARPS
+    while warps * per_warp > SMEM_PER_BLOCK:
+        warps //= 2
+    return {"route": route, "nb_t": nb if route == "register" else None,
+            "cols_per_warp": cols, "warps": warps,
+            "smem": warps * per_warp, "blocks": -(-g // (warps * cols))}
+
+
 def _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters):
     lib = _nbh_ns_lib()
     g, nb, k = zh.shape
-    _check_launchable("nbh_ns", (zh, yh, sp, mean),
-                      lib.nbh_ns_smem_bytes_per_col(k, nb))
-    from tpu_assim_torch._build import SMEM_PER_BLOCK
-
+    plan = nbh_ns_plan(k, nb, g)
+    kernel = (lib.nbh_ns_smem_bytes(k, nb, plan["warps"]),
+              lib.nbh_ns_cols_per_warp(nb))
+    if kernel != (plan["smem"], plan["cols_per_warp"]):
+        raise RuntimeError(
+            f"nbh_ns: the plan {plan} differs from the kernel's {kernel[0]} "
+            f"bytes and {kernel[1]} columns a warp")
+    _check_launchable("nbh_ns", (zh, yh, sp, mean), plan["smem"])
     out = torch.empty_like(sp)
     with torch.cuda.device(zh.device):
         stream = torch.cuda.current_stream(zh.device).cuda_stream
         err = lib.nbh_ns_launch(
             zh.data_ptr(), yh.data_ptr(), sp.data_ptr(), mean.data_ptr(),
-            out.data_ptr(), k, g, nb, num_iters, float(reg), SMEM_PER_BLOCK,
-            stream)
+            out.data_ptr(), k, g, nb, num_iters, float(reg), plan["warps"],
+            plan["blocks"], stream)
     if err != 0:
         raise RuntimeError("nbh_ns kernel launch failed: "
                            + lib.nbh_ns_error_string(err).decode())
@@ -713,7 +769,7 @@ def letkf_nbh_analysis_fused(
     num_iters : Newton-Schulz iterations, for the square roots and for the
         inverse each.
     tile : accepted for parity with the JAX signature and ignored: the
-        kernel runs one warp per column.
+        kernel packs columns into warps by ``nb`` (:func:`nbh_ns_plan`).
 
     Every tensor is f32 on one device. Returns the analysis [g, k].
     """
