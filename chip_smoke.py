@@ -14,15 +14,17 @@ kernels.
 Phases (one line each; any failure exits non-zero):
   1 device and kernel build     7 times (CUDA events around 10 chained
   2 K2 (RK4) against plain         calls, median of 20 such samples)
-  3 K1 (window) against plain   8 K3 (Jacobi SVD) against plain
-  4 fused1d against f64 eigh    9 eigh LETKF with max_obs through K3
+  3 K1 (window) against plain,  8 K3 (Jacobi SVD) against plain
+    nb 1 to 72                  9 eigh LETKF with max_obs through K3
+  4 fused1d against f64 eigh
   5 the cycle, 10 cycles        10 the localized IEnKS (bench config 9)
      through both kernels          against its f64 step
   6 large analysis (ens 100,    11 times of K3 and of the IEnKS step, with
      2^20 columns)                 K3 and with LAPACK
- 12 K4 (cheb) against plain     15 the class API: LETKF.assimilate through
- 13 K5 (Newton-Schulz) against     K4 (filter, smoother) and K1 (smoother)
-    plain, [10^4, 12, 40] and      against f64 eigh
+ 12 K4 (cheb) against plain,    15 the class API: LETKF.assimilate through
+    nb 1 to 72                     K4 (filter, smoother) and K1 (smoother)
+ 13 K5 (Newton-Schulz) against     against f64 eigh
+    plain, [10^4, 12, 40] and
     [256, nb, k], nb 1 to 48
  14 cheb and pallas analyses    16 times of K4, K5 and the class API
     against f64 eigh
@@ -48,14 +50,21 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
-Phase 1 also prints each K3, K5, K6 and K7 kernel's registers, shared
-memory and spills (nvcc -Xptxas -v) and fails on a spill of K5, of K6's
-register route or of any K7 instance;
-phase 13 runs K5 on both of its routes (register, shared) and at every
-packing of its warps, phase 17 K6 on both of its routes, each case with
-its route; phase 16 takes a torch.profiler window of the pallas analysis.
+Phase 1 also prints each K1, K3, K4, K5, K6 and K7 kernel's registers,
+shared memory and spills (nvcc -Xptxas -v) and fails on a spill of K1's
+or K4's register route, of K5, of K6's register route or of any K7
+instance; phases 3, 12 and 13 run K1, K4 and K5 on both of their routes
+(register, shared) and at every packing of their warps, each case with a
+NaN column among healthy packed ones, phase 17 K6 on both of its routes,
+each case with its route; phases 7 and 16 also give K1's and K4's device
+time by torch.profiler and torch.profiler windows of the fused1d
+analysis, the cycle and the pallas analysis.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
+In that line ``ms`` is the time a call between CUDA events (phases 7, 11,
+16, 20, 24; K8's is its device time, phase 27), and ``device_ms`` the
+kernel's own device time by torch.profiler where it is taken (K1, K4,
+K8), else null.
 Imports nothing of JAX.
 """
 
@@ -125,6 +134,7 @@ NS_ITERS = 25       # make_letkf_analysis's default newton_iters
 R2 = 4.0            # GC radius in x and in y of bench configs 7 and 8
 L11 = 2.0           # Gauss kernel lengthscale of bench configs 4 and 11
 SWEEPS = 7          # K7's sweep cap in eigh_psd's twosided dispatch
+K1_KERNELS = ("window1d", "check_sorted")  # the kernels of a K1 call
 # The least time of a kernel's work on an H100 SXM (its published peak
 # rates): its bytes at the HBM rate, its FLOPs at the f32 rate outside the
 # tensor cores (the kernels compute in f32 without them).
@@ -175,20 +185,30 @@ def card():
 
 def resources_note():
     """Registers, static shared memory and spills of every kernel that the
-    K3, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports them; for
-    K6's register route and K5's at nb = NB also the warps an SM holds at
-    that register count (4 warps a block); K5's register route (NB = 1..32)
-    and K7's 32 instances (Kp = 2..64) as registers by size, K5 at NB and
-    K7 at Kp = 40 in full. Fails on any spill of K5, of K6's register route
-    or of K7."""
+    K1, K3, K4, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports
+    them; for K6's register route and K5's at nb = NB also the warps an SM
+    holds at that register count (4 warps a block); K1's and K4's register
+    routes (NBC = 4..64), K5's (NB = 1..32) and K7's 32 instances (Kp =
+    2..64) as registers by size, K1 and K4 at NBC = NB, K5 at NB and
+    K7 at Kp = 40 in full. Fails on any spill of K1's or K4's register
+    route, of K5, of K6's register route or of K7."""
     notes = []
-    for src in ("svd_jacobi", "letkf_nbh_ns", "letkf_window2d",
-                "eigh_jacobi"):
+    for src in ("letkf_window1d", "letkf_nbh_cheb", "svd_jacobi",
+                "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi"):
         by_size = {}
         for name, regs, smem, st, ld in _build.kernel_resources(
                 _build.ptxas_report(src)):
             note = (f"{name} {regs} registers, {smem} B static smem, spills "
                     f"{st} B stored / {ld} B loaded")
+            if name.startswith(("window1d_reg_kernel", "nbh_cheb_reg_kernel")):
+                check(st == 0 and ld == 0,
+                      f"K1/K4 register route spills: {note}")
+                by_size[int(name.split("<")[1].rstrip(">"))] = regs
+                if not name.endswith(f"<{NB}>"):
+                    continue
+                blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.CHEB_MAX_WARPS)
+                note += (f" ({blocks * k1.CHEB_MAX_WARPS} warps/SM by "
+                         f"registers)")
             if name.startswith("window2d_reg_kernel"):
                 check(st == 0 and ld == 0,
                       f"K6 register route spills: {note}")
@@ -212,8 +232,10 @@ def resources_note():
                          f"registers)")
             notes.append(note)
         if by_size:
-            label = "K5 registers by NB " if src == "letkf_nbh_ns" else (
-                "K7 registers by Kp ")
+            label = {"letkf_window1d": "K1 registers by NBC ",
+                     "letkf_nbh_cheb": "K4 registers by NBC ",
+                     "letkf_nbh_ns": "K5 registers by NB "}.get(
+                         src, "K7 registers by Kp ")
             notes.append(label + ", ".join(
                 f"{n}: {r}" for n, r in sorted(by_size.items()))
                 + " (no spill)")
@@ -326,6 +348,47 @@ def ns_random(dev, g, nb, seed, k=40):
               rng.normal(size=g))
     return [torch.as_tensor(a.astype(np.float32), device=dev)
             for a in arrays]
+
+
+def window_random(dev, g, o, seed, k=40):
+    """K1's inputs on a grid of ``g`` columns from a seed: ``o`` sorted
+    observation coordinates uniform on [0, g), perturbations, innovations,
+    state perturbations [k, g] and means standard normal."""
+    rng = np.random.RandomState(seed)
+    arrays = (rng.normal(size=(k, o)), rng.normal(size=o),
+              np.sort(rng.uniform(0, g, size=o)), np.arange(g),
+              rng.normal(size=(k, g)), rng.normal(size=g))
+    return [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in arrays]
+
+
+def with_nans(args, col, obs):
+    """K1's inputs with one column's state perturbation and one
+    observation's perturbations NaN: the first reaches that column's u and
+    analysis alone, the second the Gram matrix of every column whose window
+    holds it."""
+    out = [a.clone() for a in args]
+    out[4][0, col] = float("nan")
+    out[0][:, obs] = float("nan")
+    return out
+
+
+def cheb_random(dev, g, nb, ns, seed, k=40):
+    """K4's inputs [nb, k, g], [nb, g], [ns, k, g], [ns, g] from a seed:
+    weights uniform in [0, 1), perturbations and innovations standard
+    normal."""
+    rng = np.random.RandomState(seed)
+    sw = np.sqrt(rng.rand(nb, g))
+    arrays = (rng.normal(size=(nb, k, g)) * sw[:, None, :],
+              rng.normal(size=(nb, g)) * sw, rng.normal(size=(ns, k, g)),
+              rng.normal(size=(ns, g)))
+    return [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in arrays]
+
+
+def nan_columns(out):
+    """Whether each column [g] of an analysis [.., k, g] holds a NaN."""
+    return torch.isnan(out).reshape(-1, out.shape[-1]).any(0)
 
 
 def run_cheb(args, degree, plain=False):
@@ -454,11 +517,13 @@ def median_ms(fn, reps=20, inner=10, warmup=3):
 def device_profile(fn, calls=5):
     """One torch.profiler window (CUDA activity) over ``calls`` calls of
     ``fn`` after a warm-up call: ``(wall ms per call, device ms per call,
-    [(kernel, device ms per call), ...] largest first)``. The device time
-    is the sum of the kernels' own times, so 1 - device / wall is the
-    device's idle share in the window. A window that records no device
-    activity at all (torch.profiler has returned one after many others)
-    is taken again, up to twice."""
+    [(kernel, device ms per call, launches recorded), ...] largest
+    first)``. The device time is the sum of the kernels' own times, so 1 -
+    device / wall is the device's idle share in the window. A window that
+    records no device activity at all (torch.profiler has returned one
+    after many others) is taken again, up to twice; one that records fewer
+    launches than were made (it has, late in a long run) shows in the
+    counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -476,19 +541,47 @@ def device_profile(fn, calls=5):
                 continue
             us = getattr(e, "self_device_time_total", None)
             us = e.self_cuda_time_total if us is None else us
-            rows.append((e.key, us / 1e3 / calls))
+            rows.append((e.key, us / 1e3 / calls, e.count))
         if rows:
             break
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(ms for _, ms in rows), rows
+    return wall, sum(r[1] for r in rows), rows
 
 
 def profile_note(label, fn, calls=5):
     wall, busy, rows = device_profile(fn, calls)
     check(busy > 0, f"profile {label}: no device time recorded")
-    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms, _ in rows[:5])
     return (f"{label}: wall {wall!r} ms/call, device {busy!r} ms/call (idle "
             f"{1 - busy / wall:.1%}); kernels, ms/call: {top}")
+
+
+def kernel_profile(label, fn, keys, calls=5, wall_ms=None):
+    """One torch.profiler window of ``fn`` (``device_profile``): the note
+    of its wall and device time per call, idle share and the time and share
+    of the kernels whose names hold one of ``keys`` (a tuple of names),
+    each launched once a call; and that kernel time a call, from the mean
+    time of the launches recorded (the window may miss some). With
+    ``wall_ms``, the call's time measured without the profiler (whose
+    tracing lengthens short calls several times), the note also gives the
+    idle share against it."""
+    wall, busy, rows = device_profile(fn, calls)
+    check(busy > 0, f"profile of {label}: no device time")
+    own = [(ms * calls / n, n) for name, ms, n in rows
+           if any(key in name for key in keys)]
+    mine = sum(ms for ms, _ in own)
+    check(mine > 0, f"profile of {label}: no {keys} kernel")
+    recorded = "/".join(str(n) for _, n in own)
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms, _ in rows[:5])
+    unprofiled = ("" if wall_ms is None else
+                  f"; {1 - busy / wall_ms:.1%} of the {wall_ms!r} ms a call "
+                  f"takes unprofiled")
+    return (f"{label} (torch.profiler, {calls} calls): wall {wall!r} ms/call, "
+            f"device {busy!r} ms/call (idle {1 - busy / wall:.1%}"
+            f"{unprofiled}), "
+            f"{'/'.join(keys)} {mine!r} ms/call ({mine / busy:.1%} of device "
+            f"time; launches recorded {recorded} of {calls}); kernels, "
+            f"ms/call: {top}"), mine
 
 
 def paired_ms(kernel_fn, plain_fn, plain_time=None, kernel_time=None):
@@ -582,6 +675,42 @@ def main():
     out = run_window(a, nb)
     compare(out, run_window(a, nb, plain=True), "K1 unsorted")
     check(bool(torch.isnan(out).all()), "unsorted obs must poison all")
+    # both routes and every packing (window1d_plan's columns a warp),
+    # truncating windows; column 5's NaN state perturbation sits
+    # packed beside healthy columns, and the NaN perturbations of one
+    # observation poison the Gram matrices of a run of columns
+    cases = (("[40, 10^4]", with_nans(args, 5, 500), RADIUS),
+             ("[40, 45] o 96", with_nans(
+                 window_random(dev, 45, 96, SEED + 20), 5, 95), 1.5))
+    for nb_c in (1, 4, 8, 12, 16, 17, 32, 36, 64, 72):
+        plan = k1.window1d_plan(40, nb_c, 1, DEGREE, 10000)
+        errs, most_nan = [], 0
+        for label, a, radius in cases:
+            sp, mean = a[4][None], a[5][None]
+            kw = dict(nb=nb_c, degree=DEGREE, strict=False)
+            before = k1.LAUNCHES["window1d"]
+            out = k1.letkf_window_analysis_fused(*a[:4], sp, mean, 39 / INF,
+                                                 radius, 40, **kw)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES["window1d"] == before + 1,
+                  "K1 launch not counted")
+            e, rel = compare(out, k1.window_analysis_plain(
+                *a[:4], sp, mean, 39 / INF, radius, ens_size=40,
+                epsilon=1e-5, taper="gc2", **kw), f"K1 {label} nb {nb_c}")
+            bad = nan_columns(out)
+            check(bool(bad[5]) and not bool(bad[4]) and not bool(bad[6])
+                  and int(bad.sum()) < bad.numel(),
+                  f"K1 {label} nb {nb_c}: {int(bad.sum())} NaN columns, "
+                  f"columns 4-6 {bad[4:7].tolist()}")
+            most_nan = max(most_nan, int(bad.sum()))
+            err_k1 = max(err_k1, e)
+            errs.append(f"{label} {e!r} (rel {rel!r}, {int(bad.sum())} NaN "
+                        f"columns)")
+        check(most_nan > 1, f"K1 nb {nb_c}: no window held the NaN "
+              f"observation")
+        notes.append(f"nb {nb_c} ({plan['route']}, {plan['cols_per_warp']} a "
+                     f"warp): " + ", ".join(errs))
+    kinds["window1d"]["max_abs_err"] = err_k1
     log(3, "K1 window1d [40, 10000], o=1000, nb=12, degree 12: "
         + "; ".join(notes))
 
@@ -674,13 +803,34 @@ def main():
     kinds["rk4_l96"]["bound"] = bound(2 * nbytes(state),
                                       n_steps * state.numel() * 31)
     for name, t in kinds.items():
-        log(7, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
-            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}) [{gpu}]")
+        log(7, f"{name}: kernel {t['ms']!r} ms (CUDA events), plain "
+            f"{t['plain_ms']!r} ms, bound {t['bound'][0]!r} ms "
+            f"({t['bound'][1]}), {t['ms'] / t['bound'][0]:.1f}x [{gpu}]")
+    bound_bench = bound(nbytes(*args) + nbytes(args[4]),
+                        args[3].numel() * cheb_flops(40, nb_bench, 1, DEGREE))
     log(7, f"window1d at nb={nb_bench} (bench.py's exact_nb): kernel "
-        f"{ms_k1_bench!r} ms [{gpu}]")
+        f"{ms_k1_bench!r} ms (CUDA events), bound {bound_bench[0]!r} ms "
+        f"({bound_bench[1]}), {ms_k1_bench / bound_bench[0]:.1f}x [{gpu}]")
+    # K1's own device time, its sortedness check included: its calls
+    # between CUDA events carry the wrapper's host time, which can be
+    # longer; the kernels line gives it as device_ms beside ms
+    for nb_t, b in ((nb, kinds["window1d"]["bound"]),
+                    (nb_bench, bound_bench)):
+        _, dev_ms = kernel_profile(f"K1 nb {nb_t}",
+                                   lambda: run_window(args, nb_t),
+                                   K1_KERNELS, calls=20)
+        log(7, f"window1d at nb={nb_t}: {dev_ms!r} ms of device time a call "
+            f"(torch.profiler, 20 calls; {K1_KERNELS}), {dev_ms / b[0]:.1f}x "
+            f"its bound [{gpu}]")
+        if nb_t == nb:
+            kinds["window1d"]["device_ms"] = dev_ms
     log(7, f"fused1d analysis {ms_analysis!r} ms/analysis "
         f"({10000 / ms_analysis * 1e3!r} grid-points/s); cycle "
         f"{ms_cycle!r} ms ({1e3 / ms_cycle!r} cycles/s) [{gpu}]")
+    log(7, kernel_profile("fused1d analysis", next_analysis, K1_KERNELS,
+                          wall_ms=ms_analysis)[0] + f" [{gpu}]")
+    log(7, kernel_profile("cycle", next_cycle, K1_KERNELS,
+                          wall_ms=ms_cycle)[0] + f" [{gpu}]")
 
     # -- 8. K3 against its plain version ---------------------------------
     rng = np.random.RandomState(SEED + 3)
@@ -842,7 +992,8 @@ def main():
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-         "bound_by": t["bound"][1], "library_ms": t.get("library_ms")}
+         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
+         "device_ms": t.get("device_ms")}
         for name, t in kinds.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -906,6 +1057,33 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     check(0 < n_nan < g, f"K4 NaN batch poisons {n_nan} columns")
     notes.append(f"strict overflow {n_nan} NaN columns identical, others "
                  f"{e!r}")
+    # both routes and every packing (nbh_cheb_plan's columns a warp), the
+    # class smoother's nb 24 and the nb 36 of phase 16 at ns 6,
+    # on the headline grid and a small one, column 5 NaN among healthy
+    # packed columns
+    for nb_c, ns_c, deg in ((1, 1, DEGREE), (8, 1, DEGREE), (12, 1, DEGREE),
+                            (16, 1, DEGREE), (24, 6, 24), (36, 6, 48),
+                            (64, 1, DEGREE), (72, 1, DEGREE)):
+        plan = k1.nbh_cheb_plan(40, nb_c, ns_c, deg, g)
+        errs = []
+        for g_c in (g, 45):
+            a = cheb_random(dev, g_c, nb_c, ns_c, SEED + 30 + nb_c)
+            a[0][:, :, 5] = float("nan")
+            before = k1.LAUNCHES["nbh_cheb"]
+            out = run_cheb(a, deg)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES["nbh_cheb"] == before + 1,
+                  "K4 launch not counted")
+            e, rel = compare(out, run_cheb(a, deg, plain=True),
+                             f"K4 [40, {g_c}] nb {nb_c}")
+            bad = nan_columns(out)
+            check(bool(bad[5]) and int(bad.sum()) == 1,
+                  f"K4 [40, {g_c}] nb {nb_c}: {int(bad.sum())} NaN columns")
+            err_k4 = max(err_k4, e)
+            errs.append(f"[40, {g_c}] {e!r} (rel {rel!r})")
+        notes.append(f"nb {nb_c} ns {ns_c} degree {deg} ({plan['route']}, "
+                     f"{plan['cols_per_warp']} a warp, 1 NaN column): "
+                     + ", ".join(errs))
     kinds["nbh_cheb"] = {"max_abs_err": err_k4}
     log(12, f"K4 nbh_cheb [40, {g}] against plain, max abs err: "
         + "; ".join(notes))
@@ -1032,6 +1210,8 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
         g * (NB * (NB + 1) * 40 + (5 * NS_ITERS + 2) * 2 * NB ** 3
              + 4 * NB * 40 + 4 * NB * NB))
     ms_k4_s = median_ms(lambda: run_cheb(a6, 48))
+    a24 = nbh_inputs(loc, wt, 24, ns=6)
+    ms_k4_c = median_ms(lambda: run_cheb(a24, 24))
     state1, obs1 = class_api_inputs(wt[0][None, None], w, 1)
     obs1 = obs1.replace(observations=wt[1][None])
     ms_class = median_ms(lambda: letkf.assimilate(state1, obs1), reps=10,
@@ -1040,9 +1220,9 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
     ms_pallas = median_ms(lambda: pallas(*wt), reps=10, inner=3)
     for name in ("nbh_cheb", "nbh_ns"):
         t = kinds[name]
-        log(16, f"{name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
-            f"bound {t['bound'][0]!r} ms ({t['bound'][1]}), "
-            f"{t['ms'] / t['bound'][0]:.1f}x [{gpu}]")
+        log(16, f"{name}: kernel {t['ms']!r} ms (CUDA events), plain "
+            f"{t['plain_ms']!r} ms, bound {t['bound'][0]!r} ms "
+            f"({t['bound'][1]}), {t['ms'] / t['bound'][0]:.1f}x [{gpu}]")
     t = kinds["nbh_ns"]
     ns_product = t["ms"] * 1e6 / (g * (5 * NS_ITERS + 2))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1052,18 +1232,34 @@ def nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches):
         f"SMs [{gpu}]")
     bound_k4_s = bound(nbytes(*a6) + nbytes(a6[2]),
                        g * cheb_flops(40, 36, 6, 48))
-    log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms, bound "
+    log(16, f"nbh_cheb at ns 6, nb 36, degree 48: {ms_k4_s!r} ms (CUDA "
+        f"events), bound "
         f"{bound_k4_s[0]!r} ms ({bound_k4_s[1]}), "
         f"{ms_k4_s / bound_k4_s[0]:.1f}x [{gpu}]")
-    wall, busy, rows = device_profile(lambda: pallas(*wt))
-    check(busy > 0, "profile of the pallas analysis: no device time")
-    k5_ms = sum(ms for name, ms in rows if "nbh_ns" in name)
-    check(k5_ms > 0, "profile of the pallas analysis: no K5 kernel")
-    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
-    log(16, f"pallas analysis (torch.profiler, 5 calls): wall {wall!r} "
-        f"ms/call, device {busy!r} ms/call (idle {1 - busy / wall:.1%}), K5 "
-        f"{k5_ms!r} ms/call ({k5_ms / busy:.1%} of device time); kernels, "
-        f"ms/call: {top} [{gpu}]")
+    bound_k4_c = bound(nbytes(*a24) + nbytes(a24[2]),
+                       g * cheb_flops(40, 24, 6, 24))
+    log(16, f"nbh_cheb at the class smoother's ns 6, nb 24, degree 24: "
+        f"{ms_k4_c!r} ms (CUDA events), bound {bound_k4_c[0]!r} ms "
+        f"({bound_k4_c[1]}), "
+        f"{ms_k4_c / bound_k4_c[0]:.1f}x [{gpu}]")
+    # K4's own device time: its headline calls between CUDA events carry
+    # the wrapper's host time, which can be longer; the kernels line gives
+    # it as device_ms beside ms
+    for label, a, deg, b in (
+            ("nb 12, ns 1, degree 12", a12, DEGREE,
+             kinds["nbh_cheb"]["bound"]),
+            ("nb 24, ns 6, degree 24", a24, 24, bound_k4_c),
+            ("nb 36, ns 6, degree 48", a6, 48, bound_k4_s)):
+        _, dev_ms = kernel_profile(label, lambda: run_cheb(a, deg),
+                                   ("nbh_cheb",), calls=20)
+        log(16, f"nbh_cheb at {label}: {dev_ms!r} ms of device time a "
+            f"launch (torch.profiler, 20 calls), {dev_ms / b[0]:.1f}x its "
+            f"bound [{gpu}]")
+        if a is a12:
+            kinds["nbh_cheb"]["device_ms"] = dev_ms
+    note, _ = kernel_profile("pallas analysis", lambda: pallas(*wt),
+                             ("nbh_ns",))
+    log(16, note + f" [{gpu}]")
     log(16, f"per call: LETKF(cheb).assimilate [1, 1, 40, {g}] {ms_class!r} "
         f"ms; make_letkf_analysis cheb {ms_cheb!r} ms, pallas {ms_pallas!r} "
         f"ms [{gpu}]")
@@ -1760,8 +1956,8 @@ def kernelized_phases(dev, gpu, loc, w, kinds, launches):
     wall, busy, rows = device_profile(
         lambda: twosided(analysis11, loc, nb, gauss, x32))
     check(busy > 0, "profile config 11: no device time recorded")
-    k7_ms = sum(ms for name, ms in rows if "eigh_jacobi" in name)
-    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms in rows[:5])
+    k7_ms = sum(ms for name, ms, _ in rows if "eigh_jacobi" in name)
+    top = ", ".join(f"{name[:48]} {ms!r}" for name, ms, _ in rows[:5])
     log(24, f"torch.profiler, 5 calls of the config-11 analysis via K7: wall "
         f"{wall!r} ms/call, device {busy!r} ms/call (idle "
         f"{1 - busy / wall:.1%}), K7 {k7_ms!r} ms/call = "
@@ -1832,7 +2028,7 @@ def k8_times(blocks, halo):
     for fn in (plain, kernel, kernel, plain):
         _, ms, rows = device_profile(fn, calls=20)
         if fn is kernel:
-            ms = sum(t for name, t in rows if "halo_ring" in name)
+            ms = sum(t for name, t, _ in rows if "halo_ring" in name)
             check(ms > 0, f"K8 profile: no halo_ring kernel in {rows}")
         busy[fn].append(ms)
     ev_kernel, ev_plain = paired_ms(kernel, plain)
@@ -1951,7 +2147,8 @@ def halo_phases(dev, gpu, kinds, launches):
                                 ("[103, 8192] x 8", big, 2)):
         ms, plain, ev, ev_plain, b, moved = k8_times(blocks, halo)
         if blocks is blocks3:
-            kinds["halo_ring"].update(ms=ms, plain_ms=plain, bound=b)
+            kinds["halo_ring"].update(ms=ms, plain_ms=plain, bound=b,
+                                      device_ms=ms)
         notes.append(
             f"{label} halo {halo}: device time kernel {ms!r} ms "
             f"({moved / ms / 1e9!r} TB/s), plain {plain!r} ms; per call "
@@ -1972,7 +2169,7 @@ def halo_phases(dev, gpu, kinds, launches):
              profile_note("config 3 top-k rdma", lambda: rdma3(*args3)),
              profile_note("config 7 2 x 4 window", lambda: window7(*args7))]
     _, _, rows = device_profile(lambda: window7(*args7))
-    k6_ms = sum(ms for name, ms in rows if "window2d" in name)
+    k6_ms = sum(ms for name, ms, _ in rows if "window2d" in name)
     check(k6_ms > 0, f"profile config 7 tiles: no K6 kernel in {rows}")
     notes.append(f"K6 over the 8 tiles of config 7 {k6_ms!r} ms of device "
                  f"time per call")

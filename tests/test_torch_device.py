@@ -14,6 +14,10 @@ kernels, on the CPU:
 - K5's plan (``nbh_ns_plan``): every nb from 1 to 40 gets the route of
   its size, columns packed a lane per row on the register route, a block
   within a Hopper block's shared memory, and blocks that cover the grid;
+- K1's and K4's plans (``window1d_plan``, ``nbh_cheb_plan``): every nb
+  from 1 to 72 gets the route of its size, small windows packed 32 // nbc
+  columns a warp on the register route, a block within a Hopper block's
+  shared memory, and blocks that cover the grid;
 - the parse of nvcc's resource report that ``chip_smoke.py`` prints.
 
 Whether a card exists is decided inside each test.
@@ -237,3 +241,69 @@ def test_nbh_ns_plan(nb):
 def test_nbh_ns_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
         k1.nbh_ns_plan(4096, 40, 1)
+
+
+def _check_cheb_plan(kernel, nb):
+    """K1's and K4's launch: the register route up to CHEB_REG_MAX_NB with
+    nb rounded up to 4 (nbc), a column on nbc rounded up to a power of 2
+    lanes (at most 32) and 32 // lanes columns a warp, the shared route
+    after it with one; a warp's slice holds its columns' rows side by side
+    and then each column's own block, lanes mod 32 floats long when packed,
+    so that the packed columns' broadcasts of them fall in different banks;
+    the most warps of 8, 4, 2, 1 whose slices fit a block's shared memory;
+    and blocks that cover g exactly."""
+    for k in (1, 9, 40, 64):
+        for ns, degree in ((1, 12), (6, 48), (6, 24)):
+            for g in (1, 37, 10000):
+                plan = getattr(k1, f"{kernel}_plan")(k, nb, ns, degree,
+                                                     g)
+                register = nb <= k1.CHEB_REG_MAX_NB
+                assert plan["route"] == ("register" if register
+                                         else "shared")
+                nbc = -(-nb // 4) * 4
+                assert plan["nbc"] == (nbc if register else None)
+                lanes = min(1 << (nbc - 1).bit_length(), 32)
+                cols = plan["cols_per_warp"]
+                assert cols == (32 // max(lanes, 4) if register else 1)
+                per_warp = plan["smem"] // plan["warps"]
+                assert per_warp * plan["warps"] == plan["smem"]
+                assert per_warp % 16 == 0
+                own_min = ns * k + ns + 4 * (degree + 1)
+                if register:
+                    rows = cols * nbc * (k + 4 * (1 + ns))
+                    own = (per_warp // 4 - rows) // cols
+                    assert own >= own_min and own % 4 == 0
+                    if cols > 1:
+                        assert cols * max(lanes, 4) == 32
+                        assert own % 32 == 32 // cols
+                        banks = {c * own % 32 for c in range(cols)}
+                        assert len(banks) == cols
+                else:
+                    core = (nb * (k | 1) + nb * nb + own_min
+                            + 4 * (1 + ns) * nb)
+                    extra = nb if kernel == "window1d" else 0
+                    assert core + extra <= per_warp // 4 <= core + extra + 6
+                assert plan["smem"] <= SMEM_PER_BLOCK
+                assert plan["warps"] in (1, 2, 4, 8)
+                assert (plan["warps"] == k1.CHEB_MAX_WARPS
+                        or 2 * plan["smem"] > SMEM_PER_BLOCK)
+                per_block = plan["warps"] * cols
+                assert (plan["blocks"] - 1) * per_block < g <= (
+                    plan["blocks"] * per_block)
+
+
+@pytest.mark.parametrize("nb", range(1, 73))
+def test_window1d_plan(nb):
+    _check_cheb_plan("window1d", nb)
+
+
+@pytest.mark.parametrize("nb", range(1, 73))
+def test_nbh_cheb_plan(nb):
+    _check_cheb_plan("nbh_cheb", nb)
+
+
+@pytest.mark.parametrize("plan", [k1.window1d_plan, k1.nbh_cheb_plan])
+def test_cheb_plans_raise_when_nothing_fits(plan):
+    for nb in (12, 72):
+        with pytest.raises(ValueError, match="shared memory"):
+            plan(4096, nb, 6, 48, 1)

@@ -179,6 +179,19 @@ def test_cheb_wrapper_matches_jax_kernel(rng, ns, degree):
     assert dict(T.LAUNCHES) == before  # the plain version on the CPU
 
 
+@pytest.mark.parametrize("nb", [1, 8, 16, 17])
+@pytest.mark.parametrize("ns,degree", [(1, 12), (3, 20)])
+def test_cheb_wrapper_packings_match_jax_kernel(rng, ns, degree, nb):
+    """The windows that reach each packing of K4's register route: nb 1 and
+    8 (4 columns a warp), 16 (2) and 17 (1), with a NaN column."""
+    c = nbh_case(rng, nb=nb, ns=ns, nan_cols=(5,))
+    out, ref = cheb_both(c, degree, squeeze=ns == 1)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    rel_close(out, ref)
+    bad = np.isnan(out.numpy()).reshape(-1, 37).any(axis=0)
+    assert bad[5] and bad.sum() == 1
+
+
 def test_cheb_empty_neighborhoods_give_inflated_prior(rng):
     c = nbh_case(rng, zero_cols=range(37))
     out, ref = cheb_both(c, 10, inf=1.21)

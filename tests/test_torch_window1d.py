@@ -189,6 +189,29 @@ def test_fused_wrapper_matches_jax_kernel(rng, case):
     assert err <= 1e-5 * np.abs(ref[fin]).max(), err
 
 
+@pytest.mark.parametrize("nb", [1, 8, 16, 17])
+@pytest.mark.parametrize("case", ["gc2 ns1", "gcinf ns3", "strict overflow"])
+def test_fused_wrapper_packings_match_jax_kernel(rng, case, nb):
+    """The windows that reach each packing of K1's register route: nb 1 and
+    8 (4 columns a warp), 16 (2) and 17 (1); truncating except for the
+    strict case, with a NaN in one column's state perturbations."""
+    opts = dict(CASES[case])
+    kw = {n: opts.pop(n) for n in ("taper",) if n in opts}
+    strict = case.startswith("strict")
+    c, radius = window_case(rng, **opts)
+    c["sp"][0, 0, 5] = np.nan
+    ref = jax_fused(c, radius, nb, degree=12, strict=strict, **kw)
+    out = port_fused(c, radius, nb, degree=12, strict=strict, **kw)
+    assert out.shape == ref.shape and out.dtype == np.float32
+    nan_ref = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(out), nan_ref)
+    cols = nan_ref.reshape(-1, nan_ref.shape[-1]).any(axis=0)
+    assert cols[5] and (strict or not np.delete(cols, 5).any())
+    fin = ~nan_ref
+    err = np.abs(out[fin] - ref[fin]).max()
+    assert err <= 1e-5 * np.abs(ref[fin]).max(), err
+
+
 def test_obs_block_and_tile_change_nothing(rng):
     c, radius = window_case(rng, ns=3)
     base = port_fused(c, radius, 8)

@@ -1,8 +1,10 @@
-// The per-column Chebyshev/Clenshaw solve and weight application that the
-// 1-D window kernel (letkf_window1d.cu, K1) and the neighborhood kernel
-// (letkf_nbh_cheb.cu, K4) share: the port of _cheb_solve_apply in
-// tpu_assim/ops/pallas/letkf.py, and of its plain PyTorch twin
-// tpu_assim_torch/ops/cuda/letkf.py:_cheb_solve_apply.
+// The per-column Chebyshev/Clenshaw solve and weight application of the
+// shared route (windows of more than 64 observations) that the 1-D window
+// kernel (letkf_window1d.cu, K1), the neighborhood kernel (letkf_nbh_cheb.cu,
+// K4) and the 2-D window kernel (letkf_window2d.cu, K6) share; their
+// register routes are cheb_pack.cuh (K1, K4) and cheb_reg.cuh (K6). It is
+// the port of _cheb_solve_apply in tpu_assim/ops/pallas/letkf.py, and of its
+// plain PyTorch twin tpu_assim_torch/ops/cuda/letkf.py:_cheb_solve_apply.
 //
 // One warp owns one grid column. Its workspace lies in shared memory; the
 // caller fills zh (row stride ld), spc, meanc and row 0 of w_all, then calls

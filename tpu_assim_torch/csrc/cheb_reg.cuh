@@ -1,6 +1,6 @@
 // The per-column Chebyshev/Clenshaw solve and weight application of the 2-D
 // window kernel (letkf_window2d.cu, K6) on its register route: the same
-// arithmetic as cheb_core.cuh (which K1 and K4 keep), with the Gram matrix
+// arithmetic as cheb_core.cuh (the shared route), with the Gram matrix
 // S held in registers. It is the port of _cheb_solve_apply in
 // tpu_assim/ops/pallas/letkf.py, and its plain PyTorch twin is
 // tpu_assim_torch/ops/cuda/letkf.py:_cheb_solve_apply.

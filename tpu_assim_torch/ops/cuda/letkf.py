@@ -8,6 +8,10 @@ helpers they share with the JAX package:
 - K4, :func:`letkf_nbh_analysis_cheb` (``csrc/letkf_nbh_cheb.cu``): the
   Chebyshev/Clenshaw solve and apply over neighborhoods gathered as
   ``[nb, k, g]``, shared by ``ns`` stacked state slices;
+- K1 and K4 take two routes by window size (:func:`window1d_plan`,
+  :func:`nbh_cheb_plan`): the Gram matrix in registers with small windows
+  packed several columns to a warp (``csrc/cheb_pack.cuh``), or in shared
+  memory (``csrc/cheb_core.cuh``);
 - K5, :func:`letkf_nbh_analysis_fused` (``csrc/letkf_nbh_ns.cu``): the
   Woodbury solve by Newton-Schulz iterations and apply over neighborhoods
   gathered as ``[g, nb, k]``; two routes by ``nb`` (:func:`nbh_ns_plan`),
@@ -60,12 +64,14 @@ __all__ = [
     "max_in_support_1d",
     "max_in_support_2d",
     "nbh_cheb_plain",
+    "nbh_cheb_plan",
     "nbh_fused_plain",
     "nbh_ns_plan",
     "raise_if_overflow",
     "required_obs_block",
     "required_obs_block_2d",
     "taper_name",
+    "window1d_plan",
     "window2d_banded",
     "window2d_inputs",
     "window2d_plain",
@@ -357,10 +363,12 @@ def _window1d_lib():
     lib = load_library("letkf_window1d")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window1d_launch.argtypes = (
-        [ptr] * 10 + [i32] * 6 + [f32] * 4 + [i32, i32, ptr])
+        [ptr] * 10 + [i32] * 6 + [f32] * 4 + [i32] * 4 + [ptr])
     lib.window1d_launch.restype = i32
-    lib.window1d_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.window1d_smem_bytes.argtypes = [i32] * 5
     lib.window1d_smem_bytes.restype = ctypes.c_size_t
+    lib.window1d_cols_per_warp.argtypes = [i32]
+    lib.window1d_cols_per_warp.restype = i32
     lib.window1d_error_string.argtypes = [i32]
     lib.window1d_error_string.restype = ctypes.c_char_p
     return lib
@@ -404,13 +412,118 @@ def _check_launchable(name, tensors, smem):
             f"block; a Hopper block has {SMEM_PER_BLOCK}")
 
 
+# K1's and K4's routes (csrc/letkf_window1d.cu, csrc/letkf_nbh_cheb.cu): the
+# register route (csrc/cheb_pack.cuh) holds the Gram matrix in registers for
+# windows of up to CHEB_REG_MAX_NB observations, nb rounded up to 4 (nbc) a
+# template argument, a column on nbc rounded up to a power of 2 lanes (at
+# most 32) and 32 // lanes columns a warp; the shared route
+# (csrc/cheb_core.cuh) takes larger windows, one warp a column. Both take up
+# to CHEB_MAX_WARPS warps a block.
+CHEB_REG_MAX_NB = 64
+CHEB_MAX_WARPS = 8
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _cheb_pack_lanes(nbc: int) -> int:
+    """Lanes a column owns on the register route: ``nbc`` rounded up to a
+    power of 2, at most 32 (cheb_pack.cuh:lanes_per_col)."""
+    return next(n for n in (4, 8, 16, 32) if nbc <= n or n == 32)
+
+
+def _cheb_pack_warp_floats(k: int, nb: int, ns: int, degree: int) -> int:
+    """Shared floats of one warp's slice on the register route
+    (cheb_pack.cuh:warp_floats): zt, w_all and three Clenshaw buffers, rows
+    of the warp's columns side by side, then each column's own block (its
+    state and coefficients), lanes mod 32 floats long when packed."""
+    nbc = _round4(nb)
+    lanes = _cheb_pack_lanes(nbc)
+    cols = 32 // lanes
+    own = ns * k + ns + 4 * (degree + 1)
+    own = (own + 31 - lanes) // 32 * 32 + lanes if cols > 1 else _round4(own)
+    return cols * nbc * (k + 4 * (1 + ns)) + cols * own
+
+
+def _cheb_core_floats(k: int, nb: int, ns: int, degree: int) -> int:
+    """Shared floats of one column's workspace on the shared route
+    (cheb_core.cuh:workspace_floats)."""
+    return _round4(nb * (k | 1) + nb * nb + ns * k + ns
+                   + 4 * (1 + ns) * nb + 4 * (degree + 1))
+
+
+def _cheb_plan(name: str, k: int, nb: int, ns: int, degree: int, g: int,
+               shared_floats: int) -> dict:
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    route = "register" if nb <= CHEB_REG_MAX_NB else "shared"
+    nbc = _round4(nb) if route == "register" else None
+    cols = 32 // _cheb_pack_lanes(nbc) if route == "register" else 1
+    per_warp = 4 * (_cheb_pack_warp_floats(k, nb, ns, degree)
+                    if route == "register" else shared_floats)
+    if per_warp > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name}: these shapes need {per_warp} bytes of shared memory "
+            f"per block; a Hopper block has {SMEM_PER_BLOCK}")
+    warps = CHEB_MAX_WARPS
+    while warps * per_warp > SMEM_PER_BLOCK:
+        warps //= 2
+    return {"route": route, "nbc": nbc, "cols_per_warp": cols,
+            "warps": warps, "smem": warps * per_warp,
+            "blocks": -(-g // (warps * cols))}
+
+
+def window1d_plan(k: int, nb: int, ns: int, degree: int, g: int) -> dict:
+    """K1's launch for ``g`` columns, windows of ``nb`` observations, ``k``
+    members, ``ns`` state slices and Chebyshev degree ``degree``: the route
+    (``"register"`` up to ``CHEB_REG_MAX_NB``, else ``"shared"``), the
+    template argument ``nbc`` (None on the shared route), the columns a
+    warp, the warps a block (the most of 8, 4, 2, 1 whose slices fit a
+    Hopper block's shared memory), the block's shared memory in bytes and
+    the blocks that cover ``g``. Raises ``ValueError`` when not even one
+    warp fits."""
+    return _cheb_plan("window1d", k, nb, ns, degree, g,
+                      _round4(_cheb_core_floats(k, nb, ns, degree) + nb))
+
+
+def nbh_cheb_plan(k: int, nb: int, ns: int, degree: int, g: int) -> dict:
+    """K4's launch, as :func:`window1d_plan` gives K1's."""
+    return _cheb_plan("nbh_cheb", k, nb, ns, degree, g,
+                      _cheb_core_floats(k, nb, ns, degree))
+
+
+def _check_plan(name, plan, smem, cols_per_warp):
+    """The library's own shared bytes and columns a warp for a plan."""
+    if (smem, cols_per_warp) != (plan["smem"], plan["cols_per_warp"]):
+        raise RuntimeError(
+            f"{name}: the plan {plan} differs from the kernel's {smem} "
+            f"bytes and {cols_per_warp} columns a warp")
+
+
+@functools.lru_cache(maxsize=256)
+def _cheb_launch_plan(name: str, k: int, nb: int, ns: int, degree: int,
+                      g: int) -> dict:
+    """K1's (``name`` "window1d") or K4's ("nbh_cheb") plan, checked once
+    per shape against its library's own shared bytes and columns a warp."""
+    plan = (window1d_plan if name == "window1d" else nbh_cheb_plan)(
+        k, nb, ns, degree, g)
+    lib = _window1d_lib() if name == "window1d" else _nbh_cheb_lib()
+    _check_plan(name, plan,
+                getattr(lib, f"{name}_smem_bytes")(k, nb, ns, degree,
+                                                   plan["warps"]),
+                getattr(lib, f"{name}_cols_per_warp")(nb))
+    return plan
+
+
 def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
                      degree, epsilon, taper, strict):
     lib = _window1d_lib()
     k, o = perts.shape
     ns, _, g = sp.shape
+    plan = _cheb_launch_plan("window1d", k, nb, ns, degree, g)
     _check_launchable("window1d", (perts, innov, obs_x, grid_x, sp, mean),
-                      lib.window1d_smem_bytes(k, nb, ns, degree))
+                      plan["smem"])
     device = perts.device
     nodes, dct = _cheb_tables(degree, device)
     out = torch.empty_like(sp)
@@ -426,7 +539,7 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
             nodes.data_ptr(), dct.data_ptr(), flag.data_ptr(),
             out.data_ptr(), k, o, g, ns, nb, degree, float(reg),
             float(radius), sup, float(epsilon), _TAPERS.index(taper),
-            int(bool(strict)), stream)
+            int(bool(strict)), plan["warps"], plan["blocks"], stream)
     if err != 0:
         raise RuntimeError("window1d kernel launch failed: "
                            + lib.window1d_error_string(err).decode())
@@ -470,9 +583,9 @@ def letkf_window_analysis_fused(
         nonzero-taper obs. ``strict=True`` NaN-poisons any column violating
         that; ``strict=False`` accepts truncation to the nearest.
     tile, obs_block : accepted for parity with the JAX signature and
-        ignored: the CUDA kernel runs one warp per column and binary-searches
-        the whole coordinate table, so it has neither grid tiles nor
-        per-tile obs blocks.
+        ignored: each column of the CUDA kernel binary-searches the whole
+        coordinate table, so it has neither grid tiles nor per-tile obs
+        blocks (its blocks are :func:`window1d_plan`'s).
     taper : ``"gc2"`` (GC(z,1/2,c)) or ``"gcinf"`` (GC(z,inf,c)).
 
     Every tensor is f32 on one device. Returns the analysis [k, g] (or
@@ -533,10 +646,12 @@ def _nbh_cheb_lib():
     lib = load_library("letkf_nbh_cheb")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nbh_cheb_launch.argtypes = (
-        [ptr] * 7 + [i32] * 5 + [ctypes.c_float, i32, ptr])
+        [ptr] * 7 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr])
     lib.nbh_cheb_launch.restype = i32
-    lib.nbh_cheb_smem_bytes_per_col.argtypes = [i32, i32, i32, i32]
-    lib.nbh_cheb_smem_bytes_per_col.restype = ctypes.c_size_t
+    lib.nbh_cheb_smem_bytes.argtypes = [i32] * 5
+    lib.nbh_cheb_smem_bytes.restype = ctypes.c_size_t
+    lib.nbh_cheb_cols_per_warp.argtypes = [i32]
+    lib.nbh_cheb_cols_per_warp.restype = i32
     lib.nbh_cheb_error_string.argtypes = [i32]
     lib.nbh_cheb_error_string.restype = ctypes.c_char_p
     return lib
@@ -546,10 +661,8 @@ def _launch_nbh_cheb(zh, yh, sp, mean, reg, degree):
     lib = _nbh_cheb_lib()
     nb, k, g = zh.shape
     ns = sp.shape[0]
-    _check_launchable("nbh_cheb", (zh, yh, sp, mean),
-                      lib.nbh_cheb_smem_bytes_per_col(k, nb, ns, degree))
-    from tpu_assim_torch._build import SMEM_PER_BLOCK
-
+    plan = _cheb_launch_plan("nbh_cheb", k, nb, ns, degree, g)
+    _check_launchable("nbh_cheb", (zh, yh, sp, mean), plan["smem"])
     device = zh.device
     nodes, dct = _cheb_tables(degree, device)
     out = torch.empty_like(sp)
@@ -558,7 +671,7 @@ def _launch_nbh_cheb(zh, yh, sp, mean, reg, degree):
         err = lib.nbh_cheb_launch(
             zh.data_ptr(), yh.data_ptr(), sp.data_ptr(), mean.data_ptr(),
             nodes.data_ptr(), dct.data_ptr(), out.data_ptr(), k, g, ns, nb,
-            degree, float(reg), SMEM_PER_BLOCK, stream)
+            degree, float(reg), plan["warps"], plan["blocks"], stream)
     if err != 0:
         raise RuntimeError("nbh_cheb kernel launch failed: "
                            + lib.nbh_cheb_error_string(err).decode())
@@ -590,7 +703,7 @@ def letkf_nbh_analysis_cheb(
     reg : number (or scalar tensor) (K-1)/rho.
     degree : Chebyshev degree.
     tile : accepted for parity with the JAX signature and ignored: the
-        kernel runs one warp per column.
+        kernel's blocks are :func:`nbh_cheb_plan`'s.
 
     Every tensor is f32 on one device. Returns the analysis [k, g] (or
     [ns, k, g]).
@@ -682,10 +795,6 @@ K5_REG_MAX_NB = 32
 K5_MAX_WARPS = 4
 
 
-def _round4(n: int) -> int:
-    return (n + 3) & ~3
-
-
 def _k5_col_floats(route: str, k: int, nb: int) -> int:
     """Shared floats of one column's slice on ``route``
     (letkf_nbh_ns.cu:reg_col_floats, smem_col_floats)."""
@@ -725,12 +834,8 @@ def _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters):
     lib = _nbh_ns_lib()
     g, nb, k = zh.shape
     plan = nbh_ns_plan(k, nb, g)
-    kernel = (lib.nbh_ns_smem_bytes(k, nb, plan["warps"]),
-              lib.nbh_ns_cols_per_warp(nb))
-    if kernel != (plan["smem"], plan["cols_per_warp"]):
-        raise RuntimeError(
-            f"nbh_ns: the plan {plan} differs from the kernel's {kernel[0]} "
-            f"bytes and {kernel[1]} columns a warp")
+    _check_plan("nbh_ns", plan, lib.nbh_ns_smem_bytes(k, nb, plan["warps"]),
+                lib.nbh_ns_cols_per_warp(nb))
     _check_launchable("nbh_ns", (zh, yh, sp, mean), plan["smem"])
     out = torch.empty_like(sp)
     with torch.cuda.device(zh.device):
@@ -920,15 +1025,11 @@ def _k6_floats_per_warp(route: str, k: int, nb: int, ns: int,
     """Shared floats of one column's workspace on ``route``
     (cheb_reg.cuh:workspace_floats; cheb_core.cuh:workspace_floats plus the
     window's weights and rows)."""
-    dp1 = degree + 1
     if route == "register":
         nbc = (nb + 7) & ~7
-        floats = k * nbc + 4 * (1 + ns) * nbc + ns * k + ns + 4 * dp1
-        return (floats + 3) & ~3
-    ld = k | 1
-    floats = (nb * ld + nb * nb + ns * k + ns + 4 * (1 + ns) * nb
-              + 4 * dp1)
-    return (((floats + 3) & ~3) + 2 * nb + 3) & ~3
+        return _round4(k * nbc + 4 * (1 + ns) * nbc + ns * k + ns
+                       + 4 * (degree + 1))
+    return _round4(_cheb_core_floats(k, nb, ns, degree) + 2 * nb)
 
 
 def window2d_plan(k: int, nb: int, ns: int, degree: int, width: int,
