@@ -1,8 +1,9 @@
 """
-Times the 1-D window kernel (K1) and the neighbourhood Chebyshev kernel (K4)
-on one CUDA card at the shapes of their main paths, for the tpu_assim_torch
-package found under ``--root`` (default: this checkout), and prints one JSON
-line with the card's name and power limit.
+Times the 1-D window kernel (K1), the fused RK4 forecast (K2) and the
+neighbourhood Chebyshev kernel (K4) on one CUDA card at the shapes of their
+main paths, for the tpu_assim_torch package found under ``--root``
+(default: this checkout), and prints one JSON line with the card's name and
+power limit.
 
     python3 chip_kernel_times.py [--root DIR] [--label NAME] [--check]
 
@@ -11,17 +12,18 @@ this file (its ``build_workload``, ``window_inputs``, ``nbh_inputs``,
 ``run_window``, ``run_cheb``, ``median_ms``, ``device_profile`` and
 ``compare``); only the package under test comes from ``--root``. Shapes:
 the headline workload (ens 40, grid 10^4, 10^3 observations, GC radius 20,
-rho 1.1, degree 12): K1 at windows 12 and 8; K4 on the window
-neighbourhoods at nb 12, ns 1, degree 12, at the class smoother's nb 24,
-ns 6, degree 24 and at nb 36, ns 6, degree 48. Per call, three times:
-``ms``, the median of 20 samples of 10 back-to-back calls between CUDA
-events (what a caller waits, host-bound where the wrapper's host work
-outlasts the kernel; the ``ms`` of chip_smoke.py's kernels line);
-``device_ms``, the device time of a call by torch.profiler over 20 calls
-(K1's sortedness check included); ``host_ms``, the host's time to issue
-one call, over 200 calls without a wait. ``--check`` also holds each
-kernel against its plain version on the same inputs (``compare``: within
-1e-5 of max|plain|, NaN entries identical; the relative error is printed).
+rho 1.1, degree 12): K1 at windows 12 and 8; K2 on the ensemble, 4 steps of
+dt 0.05 (the cycle's forecast); K4 on the window neighbourhoods at nb 12,
+ns 1, degree 12, at the class smoother's nb 24, ns 6, degree 24 and at nb
+36, ns 6, degree 48. Per call, three times: ``ms``, the median of 20
+samples of 10 back-to-back calls between CUDA events (what a caller waits,
+host-bound where the wrapper's host work outlasts the kernel; the ``ms`` of
+chip_smoke.py's kernels line); ``device_ms``, the device time of a call by
+torch.profiler over 20 calls (every kernel the call launches: K1's
+sortedness check included); ``host_ms``, the host's time to issue one call,
+over 200 calls without a wait. ``--check`` also holds each kernel against
+its plain version on the same inputs (``compare``: within 1e-5 of
+max|plain|, NaN entries identical; the relative error is printed).
 
 To compare two checkouts on one card, run it in one command for each in
 turns (A, B, B, A).
@@ -83,6 +85,10 @@ def main():
         cases.append((f"window1d nb {nb} ns 1 degree {cs.DEGREE}",
                       lambda nb=nb, plain=False: cs.run_window(
                           win_args, nb, plain=plain)))
+    cases.append(("rk4_l96 [40, 10^4] x 4 steps",
+                  lambda plain=False: (
+                      cs.k2.rk4_steps_plain if plain else
+                      cs.k2.fused_rk4_steps)(cs.Lorenz96(), wt[0], 0.05, 4)))
     for nb, ns, degree in ((12, 1, cs.DEGREE), (24, 6, 24), (36, 6, 48)):
         a = cs.nbh_inputs(loc, wt, nb, ns)
         cases.append((f"nbh_cheb nb {nb} ns {ns} degree {degree}",

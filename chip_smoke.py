@@ -13,7 +13,10 @@ kernels.
 
 Phases (one line each; any failure exits non-zero):
   1 device and kernel build     7 times (CUDA events around 10 chained
-  2 K2 (RK4) against plain         calls, median of 20 such samples)
+  2 K2 (RK4) against plain, bit    calls, median of 20 such samples)
+    for bit: g 4 to 2^16 + 3,
+    n_steps 0 to 9, a NaN; its
+    gradient against plain's
   3 K1 (window) against plain,  8 K3 (Jacobi SVD) against plain
     nb 1 to 72                  9 eigh LETKF with max_obs through K3
   4 fused1d against f64 eigh
@@ -50,21 +53,21 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
-Phase 1 also prints each K1, K3, K4, K5, K6 and K7 kernel's registers,
-shared memory and spills (nvcc -Xptxas -v) and fails on a spill of K1's
-or K4's register route, of K5, of K6's register route or of any K7
-instance; phases 3, 12 and 13 run K1, K4 and K5 on both of their routes
+Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
+registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
+spill of K1's or K4's register route, of K2, of K5, of K6's register
+route or of any K7 instance; phases 3, 12 and 13 run K1, K4 and K5 on both of their routes
 (register, shared) and at every packing of their warps, each case with a
 NaN column among healthy packed ones, phase 17 K6 on both of its routes,
-each case with its route; phases 7 and 16 also give K1's and K4's device
-time by torch.profiler and torch.profiler windows of the fused1d
+each case with its route; phases 7 and 16 also give K1's, K2's and K4's
+device time by torch.profiler and torch.profiler windows of the fused1d
 analysis, the cycle and the pallas analysis.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 In that line ``ms`` is the time a call between CUDA events (phases 7, 11,
 16, 20, 24; K8's is its device time, phase 27), and ``device_ms`` the
-kernel's own device time by torch.profiler where it is taken (K1, K4,
-K8), else null.
+kernel's own device time by torch.profiler where it is taken (K1, K2,
+K4, K8), else null.
 Imports nothing of JAX.
 """
 
@@ -185,15 +188,16 @@ def card():
 
 def resources_note():
     """Registers, static shared memory and spills of every kernel that the
-    K1, K3, K4, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports
+    K1, K2, K3, K4, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports
     them; for K6's register route and K5's at nb = NB also the warps an SM
     holds at that register count (4 warps a block); K1's and K4's register
     routes (NBC = 4..64), K5's (NB = 1..32) and K7's 32 instances (Kp =
     2..64) as registers by size, K1 and K4 at NBC = NB, K5 at NB and
-    K7 at Kp = 40 in full. Fails on any spill of K1's or K4's register
-    route, of K5, of K6's register route or of K7."""
+    K7 at Kp = 40 in full; K2 with the warps an SM holds (blocks of 4
+    warps). Fails on any spill of K1's or K4's register route, of K2, of
+    K5, of K6's register route or of K7."""
     notes = []
-    for src in ("letkf_window1d", "letkf_nbh_cheb", "svd_jacobi",
+    for src in ("rk4_l96", "letkf_window1d", "letkf_nbh_cheb", "svd_jacobi",
                 "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi"):
         by_size = {}
         for name, regs, smem, st, ld in _build.kernel_resources(
@@ -209,6 +213,10 @@ def resources_note():
                 blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.CHEB_MAX_WARPS)
                 note += (f" ({blocks * k1.CHEB_MAX_WARPS} warps/SM by "
                          f"registers)")
+            if name.startswith("rk4_l96_kernel"):
+                check(st == 0 and ld == 0, f"K2 spills: {note}")
+                note += (f" ({min(65536 // (-(-regs // 8) * 8 * 32), 64)} "
+                         f"warps/SM by registers)")
             if name.startswith("window2d_reg_kernel"):
                 check(st == 0 and ld == 0,
                       f"K6 register route spills: {note}")
@@ -260,6 +268,16 @@ def exact_nb(worst, mult=4, floor=8):
     """The in-support maximum rounded up to a multiple of 4, at least 8
     (bench.py:exact_nb)."""
     return max(-(-worst // mult) * mult, floor)
+
+
+def same_bits(out, ref, what):
+    """Checks that ``out`` equals ``ref`` wherever ``ref`` is not NaN and
+    is NaN where it is; returns max|out - ref| there (0.0)."""
+    nan = torch.isnan(ref)
+    check(torch.equal(torch.isnan(out), nan), f"{what}: NaN entries differ")
+    check(torch.equal(out[~nan], ref[~nan]), f"{what}: not bit for bit")
+    return float((out[~nan].double() - ref[~nan].double()).abs().max()) \
+        if bool((~nan).any()) else 0.0
 
 
 def compare(out, ref, what):
@@ -615,19 +633,59 @@ def main():
         f"{build_s:.2f} s")
     log(1, "nvcc -Xptxas -v: " + resources_note())
 
-    # -- 2. K2 against its plain version ---------------------------------
+    # -- 2. K2 against its plain version, bit for bit --------------------
     w = build_workload(40, 10000, 1000)
     state = torch.as_tensor(w[0], device=dev)
     model, dt, n_steps = Lorenz96(), 0.05, 4
-    before = k2.LAUNCHES["rk4_l96"]
-    fc = k2.fused_rk4_steps(model, state, dt, n_steps)
-    torch.cuda.synchronize()
-    check(k2.LAUNCHES["rk4_l96"] == before + 1, "K2 launch not counted")
-    err_k2, rel = compare(fc, k2.rk4_steps_plain(model, state, dt, n_steps),
-                          "K2 vs plain")
+    rng2 = np.random.RandomState(SEED + 30)
+    # (shape, steps, a NaN in row 7): the headline, rows shorter than a
+    # tile and at its edges, longer than the old kernel's shared-memory
+    # cap, a stacked state, launches of n_steps beyond MAX_STEPS
+    cases = [((40, 10000), n_steps, False)] + [
+        ((rows, g), n_steps, False)
+        for g in (4, 5, 37, 208, 209, 19371, 2 ** 16 + 3)
+        for rows in (40, 1)] + [((2, 3, 40, 256), n_steps, False)] + [
+        ((40, 10000), n, False) for n in (0, 1, 5, 9)] + [
+        ((40, 10000), n_steps, True)]
+    notes, err_k2 = [], 0.0
+    for shape, n, nan in cases:
+        x = (state if shape == (40, 10000) and not nan else torch.as_tensor(
+            rng2.normal(size=shape).astype(np.float32), device=dev))
+        if nan:
+            x[7, 1234] = float("nan")
+        plan = k2.rk4_plan(shape[-1], n)
+        before = k2.LAUNCHES["rk4_l96"]
+        out = k2.fused_rk4_steps(model, x, dt, n)
+        torch.cuda.synchronize()
+        check(k2.LAUNCHES["rk4_l96"] == before + plan.launches,
+              f"K2 {shape} x {n}: {k2.LAUNCHES['rk4_l96'] - before} "
+              f"launches counted, the plan makes {plan.launches}")
+        err_k2 = max(err_k2, same_bits(
+            out, k2.rk4_steps_plain(model, x, dt, n), f"K2 {shape} x {n}"))
+        if nan:
+            bad = int(torch.isnan(out).sum())
+            check(1 < bad < 10000, f"K2: the NaN spread to {bad} points")
+            notes.append(f"a NaN in row 7: {bad} NaN points, as plain")
+        else:
+            notes.append(f"{list(shape)} x {n} ({plan.launches} launches, "
+                         f"{plan.tiles} tiles a row)")
     kinds["rk4_l96"] = {"max_abs_err": err_k2}
-    log(2, f"K2 rk4_l96 [40, 10000] x {n_steps} steps: max abs err "
-        f"{err_k2!r} (rel {rel!r})")
+    xg = state.clone().requires_grad_()
+    ct = torch.as_tensor(rng2.normal(size=(40, 10000)).astype(np.float32),
+                         device=dev)
+    before = k2.LAUNCHES["rk4_l96"]
+    (grad_k2,) = torch.autograd.grad(
+        k2.fused_rk4_steps(model, xg, dt, n_steps), xg, ct)
+    torch.cuda.synchronize()
+    check(k2.LAUNCHES["rk4_l96"] == before + 1,
+          "K2's Function launched no kernel")
+    (grad_plain,) = torch.autograd.grad(
+        k2.rk4_steps_plain(model, xg, dt, n_steps), xg, ct)
+    same_bits(grad_k2, grad_plain, "K2 gradient")
+    log(2, f"K2 rk4_l96 bit for bit its plain version (max abs err "
+        f"{err_k2!r}): " + "; ".join(notes) + f"; the gradient through its "
+        f"Function at [40, 10000] x {n_steps}: bit for bit the plain "
+        f"version's")
 
     # -- 3. K1 against its plain version ---------------------------------
     worst = k1.max_in_support_1d(w[5][:, 0], w[4][:, 0], RADIUS)
@@ -824,6 +882,13 @@ def main():
             f"its bound [{gpu}]")
         if nb_t == nb:
             kinds["window1d"]["device_ms"] = dev_ms
+    _, dev_k2 = kernel_profile(
+        "K2", lambda: k2.fused_rk4_steps(model, state, dt, n_steps),
+        ("rk4_l96",), calls=20)
+    kinds["rk4_l96"]["device_ms"] = dev_k2
+    log(7, f"rk4_l96 [40, 10000] x {n_steps} steps: {dev_k2!r} ms of device "
+        f"time a call (torch.profiler, 20 calls), "
+        f"{dev_k2 / kinds['rk4_l96']['bound'][0]:.1f}x its bound [{gpu}]")
     log(7, f"fused1d analysis {ms_analysis!r} ms/analysis "
         f"({10000 / ms_analysis * 1e3!r} grid-points/s); cycle "
         f"{ms_cycle!r} ms ({1e3 / ms_cycle!r} cycles/s) [{gpu}]")

@@ -145,6 +145,10 @@ ptxas info    : Function properties for _ZN50_GLOBAL__N__f89981a3_17_letkf_windo
 ptxas info    : Used 64 registers, used 1 barriers, 16 bytes smem
 ptxas info    : Compiling entry function 'rk4_kernel' for 'sm_90a'
 ptxas info    : Used 32 registers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1f192236_10_rk4_l96_cu_29af328c14rk4_l96_kernelILi8EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__1f192236_10_rk4_l96_cu_29af328c14rk4_l96_kernelILi8EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 4096 bytes smem
 """
 
 
@@ -156,7 +160,8 @@ def test_kernel_resources_parses_ptxas():
     assert kernel_resources(_PTXAS) == [
         ("window2d_reg_kernel<56>", 168, 0, 48, 88),
         ("window2d_smem_kernel", 64, 16, 0, 0),
-        ("rk4_kernel", 32, 0, 0, 0)]
+        ("rk4_kernel", 32, 0, 0, 0),
+        ("rk4_l96_kernel<8>", 40, 4096, 0, 0)]
 
 
 @pytest.mark.parametrize("k", range(1, k3.MAX_K + 1))

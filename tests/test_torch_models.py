@@ -3,7 +3,10 @@ Parity of the PyTorch port's Lorenz-96 model, RK4 integrator and fused RK4
 forecast (tpu_assim_torch.models) against the JAX package on the same numpy
 inputs: the model and integrator in f64 at 1e-10; the fused forecast's
 plain version against the JAX kernel in interpret mode in f32 within
-1e-5 max|ref| (the two only reassociate the stage combination).
+1e-5 max|ref| (the two only reassociate the stage combination); its
+gradient against jax.grad of the JAX kernel's VJP in f64 at 1e-10 and in
+f32 within 1e-5 max|ref|. The CUDA kernel's tiling (rk4_plan) and its
+emulation (rk4_tiles_plain) against the plain version, bit for bit.
 """
 
 import numpy as np
@@ -118,7 +121,9 @@ def test_supports_fused_rk4_gate():
     integ = RK4Integrator(Lorenz96(), 0.05)
     assert cf.supports_fused_rk4(integ, (40, 10000))
     assert cf.supports_fused_rk4(integ, (40, 19370))
-    assert not cf.supports_fused_rk4(integ, (40, 19371))  # row > 227 KB
+    assert cf.supports_fused_rk4(integ, (40, 19371))  # no cap on a row
+    assert cf.supports_fused_rk4(integ, (40, 2 ** 20))
+    assert cf.supports_fused_rk4(integ, (40, 4))
     assert not cf.supports_fused_rk4(integ, (40, 3))
     assert not cf.supports_fused_rk4(integ, (40, 100), dtype_bytes=8)
 
@@ -130,3 +135,88 @@ def test_supports_fused_rk4_gate():
         RK4Integrator(lambda x: -x), (4, 100))
     assert not cf.supports_fused_rk4(
         RK4Integrator(Lorenz96(torch.ones(100))), (4, 100))
+
+
+PLAN_G = (4, 5, 37, 208, 209, 10000, 19371)
+PLAN_STEPS = (0, 1, 4, 5, 9)
+
+
+@pytest.mark.parametrize("n_steps", PLAN_STEPS)
+@pytest.mark.parametrize("g", PLAN_G)
+def test_rk4_plan(g, n_steps):
+    """A tile of 32 p points keeps 8 halo points a step on the left and 4
+    on the right; the interiors cover the ring exactly once; ceil(n_steps
+    / steps) launches, one for the cycle's 4 steps."""
+    plan = cf.rk4_plan(g, n_steps)
+    s = plan.steps
+    assert 1 <= s <= cf.MAX_STEPS and s == min(max(n_steps, 1),
+                                                 cf.MAX_STEPS)
+    assert plan.p == cf.TILE_P
+    assert (plan.left, plan.right) == (8 * s, 4 * s)
+    assert plan.left + plan.stride + plan.right == 32 * plan.p
+    assert plan.launches == -(-n_steps // s)
+    if n_steps == 4:
+        assert plan.launches == 1
+    written = [t * plan.stride + j for t in range(plan.tiles)
+               for j in range(plan.stride) if t * plan.stride + j < g]
+    assert written == list(range(g))
+    assert (plan.tiles - 1) * plan.stride < g
+
+
+def _same_bits(out, ref):
+    """Equal wherever finite, NaN in the same places."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("shape, n_steps", [
+    ((3, g), n) for g in PLAN_G for n in PLAN_STEPS] + [((2, 3, 8, 64), 4),
+                                                        ((2, 3, 8, 64), 9)])
+def test_rk4_tiles_plain_matches_plain(rng, shape, n_steps):
+    """The kernel's decomposition (tiles with their halo, the edge lanes'
+    values, the ring wrap, the launches of n_steps) gives the plain
+    version's bits, NaN in the same places; one row carries a NaN."""
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    x.view(-1, shape[-1])[1, shape[-1] // 2] = float("nan")
+    plan = cf.rk4_plan(shape[-1], n_steps)
+    ref = cf.rk4_steps_plain(Lorenz96(), x, 0.05, n_steps)
+    out = cf.rk4_tiles_plain(Lorenz96(), x, 0.05, n_steps, plan)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    _same_bits(out, ref)
+    assert bool(torch.isnan(out).any()) and bool(torch.isfinite(out).any())
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10),
+                                        (np.float32, 1e-5)])
+@pytest.mark.parametrize("n_steps", [1, 4, 5])
+def test_fused_rk4_grad_matches_jax(rng, dtype, tol, n_steps):
+    """The Function's gradient (its forward on the plain route for a CPU
+    tensor) against jax.grad through the JAX kernel's custom VJP in
+    interpret mode; f32 within 1e-5 max|ref| (the two loops may round in
+    another order)."""
+    import jax
+
+    x = (rng.normal(size=(4, 128)) + 2.0).astype(dtype)
+    ct = rng.normal(size=(4, 128)).astype(dtype)
+
+    def j_loss(v):
+        return jnp.sum(j_fused(JLorenz96(), v, 0.05, n_steps,
+                               interpret=True) * ct)
+
+    ref = np.asarray(jax.grad(j_loss)(jnp.asarray(x)))
+    before = dict(cf.LAUNCHES)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = cf.fused_rk4_steps(Lorenz96(), xt, 0.05, n_steps)
+    assert out.grad_fn is not None
+    (grad,) = torch.autograd.grad(out, xt, torch.from_numpy(ct))
+    assert grad.dtype == xt.dtype
+    assert np.abs(grad.numpy() - ref).max() <= tol * np.abs(ref).max()
+    assert cf.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_steps", [0, 1, 3])
+def test_fused_rk4_gradcheck(rng, n_steps):
+    x = torch.from_numpy(rng.normal(size=(2, 12)) + 2.0).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v: cf.fused_rk4_steps(Lorenz96(), v, 0.05, n_steps), (x,))
