@@ -2,7 +2,8 @@
 Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
 Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
-IEnKS smoother (Jacobi SVD + fused RK4), the neighborhood solvers (cheb,
+IEnKS smoother (Jacobi SVD + fused RK4) as a step and through its class
+API, with its gradient through both kernels, the neighborhood solvers (cheb,
 pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
 localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
 LETKF over 8 virtual shards of the card (halo exchange kernel K8) at the
@@ -53,6 +54,13 @@ Phases (one line each; any failure exits non-zero):
  27 times of K8 (config 3 and         tile mesh (K6), against f64 eigh
     [103, 8192] x 8 shards) and
     of the halo analyses
+ 28 the smoother classes at config 9 (run after phase 11, with its f64
+    oracle): LocalizedIEnKSTransform and LocalizedIEnKSBundle through K2
+    and K3 (2 + 12 launches in chunks of 4096, 2 + 4 unchunked) against
+    the functional step and its f64 oracle; K3's gradient against
+    torch.linalg.svd's in f64; the class smoother's gradient through K2
+    and K3 against f64; times of the class call and of its backward,
+    torch.profiler windows of the class call and the functional step
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -84,6 +92,7 @@ import torch
 import tpu_assim_torch
 from tpu_assim_torch import _build
 from tpu_assim_torch.analysis import (
+    _forecast,
     _normalized_obs_space,
     _strip_inputs_2d,
     _strip_plan_2d,
@@ -93,7 +102,15 @@ from tpu_assim_torch.analysis import (
     make_lienks_step,
     make_strip_letkf_2d,
 )
-from tpu_assim_torch import KETKF, LETKF, LKETKF, EnsembleState, Observation
+from tpu_assim_torch import (
+    KETKF,
+    LETKF,
+    LKETKF,
+    EnsembleState,
+    LocalizedIEnKSBundle,
+    LocalizedIEnKSTransform,
+    Observation,
+)
 from tpu_assim_torch.convert import coord1_distance
 from tpu_assim_torch.interface import lketkf as lk
 from tpu_assim_torch.models import Lorenz96, RK4Integrator
@@ -105,7 +122,12 @@ from tpu_assim_torch.ops.cuda import letkf as k1
 from tpu_assim_torch.ops.cuda import svd as k3
 from tpu_assim_torch.ops.kernels import GaussKernel, TanhKernel
 from tpu_assim_torch.ops.ketkf import center_gram
-from tpu_assim_torch.ops.linalg import rev_evd, rev_svd, set_jacobi_dispatch
+from tpu_assim_torch.ops.linalg import (
+    rev_evd,
+    rev_svd,
+    set_jacobi_dispatch,
+    svd,
+)
 from tpu_assim_torch.ops.localization import (
     GaspariCohn,
     neighborhood_select_window,
@@ -137,6 +159,12 @@ NS_ITERS = 25       # make_letkf_analysis's default newton_iters
 R2 = 4.0            # GC radius in x and in y of bench configs 7 and 8
 L11 = 2.0           # Gauss kernel lengthscale of bench configs 4 and 11
 SWEEPS = 7          # K7's sweep cap in eigh_psd's twosided dispatch
+GRAD_TOL = 1e-4     # K3's gradient against f64 on a spread spectrum,
+                    # relative to max|reference| (f32 rounding: ~7e-6)
+SMOOTHER_GRAD_TOL = 1e-3  # the class smoother's f32 gradient against f64,
+                          # relative to max|reference|
+BUNDLE_FACTOR = 2.0  # the chunked f32 class bundle's distance from f64, in
+                     # units of the f32 functional bundle step's
 K1_KERNELS = ("window1d", "check_sorted")  # the kernels of a K1 call
 # The least time of a kernel's work on an H100 SXM (its published peak
 # rates): its bytes at the HBM rate, its FLOPs at the f32 rate outside the
@@ -1028,6 +1056,8 @@ def main():
         f"grid-points/s with torch.linalg.svd (one call); eigh LETKF with "
         f"max_obs {NB} (phase 9, 1 K3 launch) {ms_eigh9!r} ms [{gpu}]")
 
+    smoother_phases(dev, gpu, loc, w, exact_nb(worst), oracle10, out10,
+                    out_b, ienks_batches, ms_step, lambda: lienks(*wt))
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
     window2d_phases(dev, gpu, kinds, launches)
     kernelized_phases(dev, gpu, loc, w, kinds, launches)
@@ -1063,6 +1093,188 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def smoother_inputs(w, dev, dtype):
+    """Bench config 9 as the class smoother takes it: the [40, 10^4]
+    ensemble as an EnsembleState [1, 1, 40, 10^4] at time 0, and its 1000
+    point observations (IdentityOperator), in ``dtype`` on ``dev``."""
+    data = torch.as_tensor(w[0], device=dev).to(dtype)
+    state = EnsembleState(data[None, None],
+                          times=torch.zeros(1, dtype=dtype, device=dev),
+                          grid_coords=torch.as_tensor(w[4], device=dev).to(
+                              dtype))
+    obs = Observation(
+        torch.as_tensor(w[1], device=dev).to(dtype)[None],
+        torch.as_tensor(w[2], device=dev).to(dtype),
+        obs_coords=torch.as_tensor(w[5], device=dev).to(dtype),
+        times=torch.zeros(1, dtype=dtype, device=dev),
+        operator=IdentityOperator(obs_points=w[3], len_grid=w[0].shape[1]))
+    return state, obs
+
+
+def l96_forward(state, iter_num=0):
+    """The smoother's forward model: 4 RK4 steps of Lorenz-96 (dt 0.05) of
+    every member, through ``analysis._forecast`` (K2 on the card in
+    f32)."""
+    state = state.replace(data=_forecast(RK4Integrator(Lorenz96(), 0.05), 4,
+                                         state.data))
+    return state, state
+
+
+def smoother_grad(alg, state, obs):
+    """``(analysis [40, g], d sum(analysis^2) / d state [40, g])`` of one
+    class call."""
+    x = state.data.detach().clone().requires_grad_(True)
+    out = alg.assimilate(state.replace(data=x), obs).data
+    torch.sum(out * out).backward()
+    return out.detach()[0, 0], x.grad[0, 0]
+
+
+def smoother_phases(dev, gpu, loc, w, nb, oracle10, out10, out_b,
+                    ienks_batches, ms_step, step_fn):
+    """Phase 28: the smoother classes at bench config 9, their launches,
+    their error against the functional step and its f64 oracle, K3's
+    gradient and the smoother's gradient through K2 and K3, and times."""
+    # -- 28. the smoother classes -------------------------------------------
+    state, obs = smoother_inputs(w, dev, torch.float32)
+    opts = dict(forward_model=l96_forward, localization=loc, tau=1.0,
+                max_iter=2, max_obs=nb, selection="window")
+    expected = {4096: {"rk4_l96": 2, "svd_jacobi": 12},
+                None: {"rk4_l96": 2, "svd_jacobi": 4}}
+    outs = {}
+    for cls in (LocalizedIEnKSTransform, LocalizedIEnKSBundle):
+        for chunk in (4096, None):
+            alg = cls(chunksize=chunk, **opts)
+            out, counts = counted(lambda: alg.assimilate(state, obs).data)
+            name = f"{cls.__name__} chunksize={chunk}"
+            check(counts == expected[chunk], f"{name} launches {counts}")
+            check(bool(torch.isfinite(out).all()), f"{name} not finite")
+            outs[name] = out[0, 0]
+    # the bundle's f64 step on the CPU (no kernel): the yardstick of its
+    # f32 conditioning, which divides rounding of the propagated
+    # ensemble by epsilon = 1e-4
+    w64 = [torch.as_tensor(a) for a in w]
+    w64 = [t.double() if t.is_floating_point() else t for t in w64]
+    bundle64 = make_lienks_step(
+        loc, RK4Integrator(Lorenz96(), 0.05), 4, n_outer=2, kind="bundle",
+        tau=1.0, max_obs=nb, selection="window")(*w64).to(dev)
+
+    def rel(out, ref):
+        return float((out.double() - ref.double()).abs().max()
+                     / ref.double().abs().max())
+
+    rel_b64 = rel(out_b, bundle64)
+    errs = {name: (rel(out, out10 if "Transform" in name else out_b),
+                   rel(out, oracle10 if "Transform" in name else bundle64))
+            for name, out in outs.items()}
+    log(28, f"class smoothers (config 9: ens 40, grid 10000, obs 1000, GC "
+        f"r={RADIUS}, 2 outer, 4xRK4, max_obs {nb} window; launches "
+        f"{expected[4096]} in chunks of 4096, {expected[None]} unchunked), "
+        f"max rel err against the f32 functional step and the f64 step: "
+        + "; ".join(f"{name} {a!r}, {b!r}" for name, (a, b) in errs.items())
+        + f"; the f32 functional bundle against the f64 one {rel_b64!r}")
+    for name, (to_twin, to_f64) in errs.items():
+        if "Transform" in name:
+            check(to_twin <= TOL and to_f64 <= TOL,
+                  f"{name}: {to_twin!r}, {to_f64!r} > {TOL}")
+    check(errs["LocalizedIEnKSBundle chunksize=None"][0] <= TOL,
+          f"unchunked class bundle vs its functional step > {TOL}")
+    # in chunks, the inner steps' batched products round otherwise, which
+    # the bundle magnifies to its f32 conditioning: held to the functional
+    # f32 step's own distance from f64
+    check(errs["LocalizedIEnKSBundle chunksize=4096"][1]
+          <= BUNDLE_FACTOR * max(rel_b64, TOL),
+          f"chunked class bundle vs f64 > {BUNDLE_FACTOR} x {rel_b64!r}")
+
+    # K3's gradient: sign-invariant compositions of the kernel's f32
+    # factors against torch.linalg.svd's autograd in f64 on the CPU
+    rng = np.random.RandomState(SEED + 28)
+
+    def composition_grad(a, svd_fn, cot):
+        x = a.detach().clone().requires_grad_(True)
+        loss = sum(torch.sum(c * m) for c, m in zip(
+            cot, ienks_compositions(*svd_fn(x), a.shape[-1])))
+        loss.backward()
+        return x.grad.double().cpu()
+
+    def lapack(x):
+        u, s, vh = torch.linalg.svd(x)
+        return u, s, vh.mT
+
+    def k3_grad_err(a, ref_svd):
+        cot = [torch.as_tensor(rng.normal(size=tuple(a.shape)))
+               for _ in range(3)]
+        g32 = composition_grad(a, k3.svd_jacobi,
+                               [c.to(device=dev, dtype=a.dtype) for c in cot])
+        g64 = composition_grad(a.double().cpu(), ref_svd, cot)
+        check(bool(torch.isfinite(g32).all()), "K3 gradient not finite")
+        return float((g32 - g64).abs().max() / g64.abs().max())
+
+    spread = torch.as_tensor(sigma_span_batch(rng, 10000, 40, 10.0),
+                             device=dev)
+    err_grad = k3_grad_err(spread, lapack)
+    check(err_grad <= GRAD_TOL,
+          f"K3 gradient vs torch.linalg.svd f64: {err_grad!r} > {GRAD_TOL}")
+    notes = []
+    for i, a in enumerate(ienks_batches[1:], 2):
+        s64 = torch.linalg.svdvals(a.double().cpu())
+        gap = float((s64[..., :-1] - s64[..., 1:]).min())
+        err = k3_grad_err(a, lambda x: svd(x, use_jacobi=False))
+        notes.append(f"batch {i} {err!r} (smallest singular-value gap "
+                     f"{gap!r})")
+    log(28, f"K3 gradient (f32, its autograd.Function) of the IEnKS "
+        f"compositions W'^-T, U S^-2 U^T, U (K-1)^1/2 S^-1/2 V^T: on "
+        f"[10^4, 40, 40] with singular values log-spaced over 10, against "
+        f"torch.linalg.svd's autograd in f64 (CPU), max rel err "
+        f"{err_grad!r} (budget {GRAD_TOL}); on the IEnKS step's batches "
+        f"2-4 against the f64 LAPACK route, not checked: the rank-{nb} "
+        f"update of (K-1) I ties K - {nb} singular values to rounding, "
+        f"where the pullback of an arbitrary cotangent is ill-posed in any "
+        f"precision: " + "; ".join(notes))
+
+    # the smoother's gradient through K2 and K3, against f64 on the CPU
+    alg = LocalizedIEnKSTransform(chunksize=4096, **opts)
+    (out32, g32), counts = counted(smoother_grad, alg, state, obs)
+    check(counts == expected[4096], f"class gradient launches {counts}")
+    check(bool(torch.isfinite(g32).all()), "class gradient not finite")
+    state64, obs64 = smoother_inputs(w, "cpu", torch.float64)
+    out64, g64 = smoother_grad(alg, state64, obs64)
+    _, rel_out64 = compare(out64.to(dev), oracle10,
+                           "f64 class (CPU) vs f64 step")
+    scale = float(g64.abs().max())
+    err_g = float((g32.double().cpu() - g64).abs().max()) / scale
+    state_p, obs_p = smoother_inputs(w, "cpu", torch.float32)
+    _, g32_plain = smoother_grad(alg, state_p, obs_p)
+    err_plain = float((g32_plain.double() - g64).abs().max()) / scale
+    log(28, f"class smoother gradient d sum(out^2)/d state, f32 through K2 "
+        f"and K3 ({counts}) vs f64 on the CPU (no kernel; its analysis vs "
+        f"the f64 step {rel_out64!r}): max rel err {err_g!r} (budget "
+        f"{SMOOTHER_GRAD_TOL}); the f32 plain route on the CPU (LAPACK, "
+        f"plain RK4): {err_plain!r}")
+    check(err_g <= SMOOTHER_GRAD_TOL,
+          f"class smoother gradient {err_g!r} > {SMOOTHER_GRAD_TOL}")
+
+    # -- times --------------------------------------------------------------
+    times, profiles = [], []
+    for chunk in (4096, None):
+        alg = LocalizedIEnKSTransform(chunksize=chunk, **opts)
+        ms = median_ms(lambda: alg.assimilate(state, obs), reps=10, inner=3)
+        times.append(f"chunksize={chunk} {ms!r} ms = "
+                     f"{10000 / ms * 1e3!r} grid-points/s")
+        profiles.append(profile_note(f"class call chunksize={chunk}",
+                                     lambda: alg.assimilate(state, obs)))
+    profiles.append(profile_note("the functional step", step_fn))
+    alg = LocalizedIEnKSTransform(chunksize=4096, **opts)
+    ms_fb = median_ms(lambda: smoother_grad(alg, state, obs), reps=5,
+                      inner=1)
+    log(28, f"LocalizedIEnKSTransform.assimilate (config 9, CUDA events, "
+        f"median of 10 x 3 calls): " + "; ".join(times)
+        + f"; the functional step (phase 11) {ms_step!r} ms = "
+        f"{10000 / ms_step * 1e3!r} grid-points/s; forward and backward of "
+        f"one chunksize=4096 call {ms_fb!r} ms (median of 5) [{gpu}]")
+    log(28, "torch.profiler, 5 calls each: " + "; ".join(profiles)
+        + f" [{gpu}]")
 
 
 def class_api_inputs(data, w, n_times):

@@ -268,8 +268,8 @@ def test_class_api_config_errors():
         TT.LETKF(loc, method="fused2d")
     with pytest.raises(TypeError):
         TT.LETKF(object(), method="fused2d", max_obs=16)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.LETKF(loc, weight_save_path="w.h5")
+    # the weight checkpoint is ported: a weight-based method takes a path
+    assert TT.LETKF(loc, weight_save_path="w.h5").weight_save_path == "w.h5"
     # the transforms are ported: any iterable of them is taken
     inflation = MultiplicativeInflation(1.2)
     assert TT.ETKF(pre_transform=[inflation]).pre_transform == [inflation]

@@ -19,6 +19,7 @@ import torch
 
 from tpu_assim_torch.observation import Observation, ObservationError
 from tpu_assim_torch.state import EnsembleState, StateError
+from tpu_assim_torch.utils.checkpoint import load_weights, save_weights
 
 logger = logging.getLogger(__name__)
 
@@ -37,8 +38,9 @@ class BaseAssimilation:
         ``update_state`` in order.
     forward_model : optional callable ``(state, iter_num) -> (state,
         pseudo_state)`` that propagates the model ensemble.
-    weight_save_path : not ported yet (ROADMAP.md Queue 1 item 11,
-        ``utils/checkpoint``); anything but None raises.
+    weight_save_path : optional path; the estimated weights are
+        checkpointed there (HDF5, :mod:`tpu_assim_torch.utils.checkpoint`)
+        and reloaded before they are applied.
     """
 
     def __init__(
@@ -49,10 +51,6 @@ class BaseAssimilation:
         forward_model: Optional[Callable] = None,
         weight_save_path: Optional[str] = None,
     ):
-        if weight_save_path is not None:
-            raise NotImplementedError(
-                "weight_save_path is not ported yet: ROADMAP.md Queue 1 item "
-                "11 (utils/checkpoint)")
         self.smoother = smoother
         self.pre_transform = pre_transform
         self.post_transform = post_transform
@@ -150,6 +148,17 @@ class BaseAssimilation:
             raise ValueError("weights must be [k, m] or [grid, k, m], got "
                              f"shape {tuple(weights.shape)}")
         return state.replace(data=state_mean + perts)
+
+    # ------------------------------------------------------- weight checkpoint
+    def store_weights(self, weights: torch.Tensor) -> None:
+        """Checkpoint the weights to ``weight_save_path``."""
+        save_weights(self.weight_save_path, weights)
+
+    def load_weights(self, device=None, dtype=None) -> torch.Tensor:
+        """The weights of ``weight_save_path`` on ``device`` in ``dtype``
+        (the caller passes those of the weights it stored)."""
+        return load_weights(self.weight_save_path, device=device,
+                            dtype=dtype)
 
     # --------------------------------------------------------- model coupling
     def _get_model_weights(self, weights: torch.Tensor) -> torch.Tensor:

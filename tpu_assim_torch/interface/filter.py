@@ -59,7 +59,12 @@ class FilterAssimilation(BaseAssimilation):
     def _estimate_and_apply(self, state: EnsembleState,
                             filtered_obs: List[Observation],
                             ens_obs: List[torch.Tensor]) -> EnsembleState:
-        """Estimate the weights and apply them; algorithms with a fused
-        solve and apply override it."""
-        return self._apply_weights(
-            state, self.estimate_weights(state, filtered_obs, ens_obs))
+        """Estimate the weights, checkpoint and reload them when
+        ``weight_save_path`` is set, and apply them; algorithms with a
+        fused solve and apply override it."""
+        weights = self.estimate_weights(state, filtered_obs, ens_obs)
+        if self.weight_save_path is not None:
+            self.store_weights(weights)
+            weights = self.load_weights(device=weights.device,
+                                        dtype=weights.dtype)
+        return self._apply_weights(state, weights)

@@ -1,7 +1,7 @@
 """
 Batched square SVD by one-sided (Hestenes) Jacobi as one hand-written CUDA
 kernel (the port of :func:`tpu_assim.ops.pallas.svd.svd_jacobi`), with its
-plain PyTorch twin and the eigendecomposition through it.
+plain PyTorch twin, its gradient and the eigendecomposition through it.
 
 Each round orthogonalizes the K/2 disjoint column pairs of one Brent-Luk
 tournament seating: a pair freezes when ``|a_p . a_q| <= FREEZE eps |a_p|
@@ -24,7 +24,10 @@ launches ``csrc/svd_jacobi.cu`` for CUDA f32 tensors (one block per matrix,
 a team of 4 lanes per column pair; :func:`svd_jacobi_plan`). The kernel
 sums its dot products in another order than the plain version, so the two
 agree within rounding, not bit for bit. The kernel's library is built at
-its first launch (:mod:`tpu_assim_torch._build`).
+its first launch (:mod:`tpu_assim_torch._build`). Both routes are
+differentiable through one ``torch.autograd.Function`` whose backward is
+the JAX package's square-SVD pullback in plain PyTorch (the JAX package
+has no backward kernel either).
 """
 
 import ctypes
@@ -33,7 +36,7 @@ import functools
 import torch
 
 __all__ = ["LAUNCHES", "eigh_from_svd", "eigh_svd_jacobi", "svd_jacobi",
-           "svd_jacobi_plain", "svd_jacobi_plan"]
+           "svd_jacobi_plain", "svd_jacobi_plan", "svd_pullback"]
 
 # Launches of the CUDA kernel, counted by the wrapper.
 LAUNCHES = {"svd_jacobi": 0}
@@ -172,10 +175,6 @@ def _svd_lib():
 
 
 def _launch_svd(a, sweeps):
-    if a.requires_grad:
-        raise NotImplementedError(
-            "gradients through the CUDA SVD kernel are not ported yet "
-            "(ROADMAP.md: the autograd.Function of K3)")
     if a.dtype != torch.float32:
         raise TypeError(f"the CUDA SVD kernel takes f32; got {a.dtype}")
     from tpu_assim_torch._build import SMEM_PER_BLOCK
@@ -210,9 +209,64 @@ def _launch_svd(a, sweeps):
     return u, sig, v
 
 
+def _svd_jacobi_forward(a, sweeps):
+    batch_shape, k = _check_square(a)
+    if a.device.type == "cpu":
+        return svd_jacobi_plain(a, sweeps)
+    if a.device.type != "cuda":
+        raise ValueError(f"no SVD kernel for device {a.device}")
+    a3 = a.reshape(-1, k, k).contiguous()
+    return _sorted_factors(*_launch_svd(a3, sweeps), k, batch_shape)
+
+
+def _skew(x):
+    return x - x.transpose(-1, -2)
+
+
+def svd_pullback(u, s, v, du, ds, dv):
+    """The square-SVD pullback of the JAX package
+    (``tpu_assim/ops/linalg.py:_svd_jacobi_bwd``), written in the SVD's own
+    ``(u, s, v)``, so any column signs and order feed it:
+
+        dA = U [(F o sk(U^T dU)) S + S (F o sk(V^T dV)) + diag(ds)] V^T
+
+    with ``F_ij = 1 / (s_j^2 - s_i^2)``, zero where ``s_j^2 == s_i^2``,
+    and ``sk(X) = X - X^T``. A cotangent of None is skipped."""
+    s2 = s * s
+    den = s2[..., None, :] - s2[..., :, None]
+    f = torch.where(den != 0.0, 1.0 / torch.where(den == 0.0, 1.0, den), 0.0)
+    inner = torch.zeros_like(u)
+    if du is not None:
+        inner = inner + (f * _skew(u.mT @ du)) * s[..., None, :]
+    if dv is not None:
+        inner = inner + s[..., :, None] * (f * _skew(v.mT @ dv))
+    if ds is not None:
+        inner = inner + torch.diag_embed(ds)
+    return u @ inner @ v.mT
+
+
+class _SVDJacobi(torch.autograd.Function):
+    """:func:`svd_jacobi` with :func:`svd_pullback` as its backward (plain
+    PyTorch on either device)."""
+
+    @staticmethod
+    def forward(ctx, a, sweeps):
+        u, s, v = _svd_jacobi_forward(a, sweeps)
+        ctx.save_for_backward(u, s, v)
+        ctx.set_materialize_grads(False)
+        return u, s, v
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, du, ds, dv):
+        return svd_pullback(*ctx.saved_tensors, du, ds, dv), None
+
+
 def svd_jacobi(a: torch.Tensor, sweeps: int = 20):
     """Batched square SVD, descending singular values: the plain PyTorch
     version for a CPU tensor, the CUDA kernel for a CUDA f32 tensor.
+    Differentiable: the gradient is the square-SVD pullback of the JAX
+    package (:func:`svd_pullback`), plain PyTorch on either device.
 
     Parameters
     ----------
@@ -232,15 +286,12 @@ def svd_jacobi(a: torch.Tensor, sweeps: int = 20):
     its U column zero (LAPACK returns an orthonormal completion). The
     IEnKS consumers invert the singular values, so rank-deficient inputs
     are out of their contract either way. A NaN in a matrix spreads to all
-    of its U and s; the other matrices of the batch are untouched.
+    of its U and s; the other matrices of the batch are untouched. The
+    gradient is that of a composition invariant to the column signs (as
+    the IEnKS steps take the factors); on exactly repeated singular values
+    it drops the coupling of the tied pair, as the JAX package does.
     """
-    batch_shape, k = _check_square(a)
-    if a.device.type == "cpu":
-        return svd_jacobi_plain(a, sweeps)
-    if a.device.type != "cuda":
-        raise ValueError(f"no SVD kernel for device {a.device}")
-    a3 = a.reshape(-1, k, k).contiguous()
-    return _sorted_factors(*_launch_svd(a3, sweeps), k, batch_shape)
+    return _SVDJacobi.apply(a, sweeps)
 
 
 def eigh_svd_jacobi(a: torch.Tensor, sweeps: int = 20):

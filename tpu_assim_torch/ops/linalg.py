@@ -14,8 +14,9 @@ The Newton-Schulz helpers (:func:`inv_sqrt_psd_newton`,
 matmul-only iterations on SPD batches.
 
 :func:`inv_and_inv_sqrt_psd_eigh` carries the Daleckii-Krein derivative of
-the JAX package as a ``torch.autograd.Function``. The SVD pullback is not
-ported yet.
+the JAX package as a ``torch.autograd.Function``; both routes of
+:func:`svd` carry the JAX package's square-SVD pullback
+(:func:`tpu_assim_torch.ops.cuda.svd.svd_pullback`).
 """
 
 import os
@@ -79,6 +80,32 @@ def _takes_jacobi(tensor: torch.Tensor, use_jacobi: Optional[bool]) -> bool:
     )
 
 
+class _SquareSVD(torch.autograd.Function):
+    """:func:`torch.linalg.svd` of square matrices with the Jacobi route's
+    backward, :func:`~tpu_assim_torch.ops.cuda.svd.svd_pullback`. Its tie
+    guard keeps the gradient finite where singular values are exactly
+    equal; :func:`torch.linalg.svd`'s own backward divides by their zero
+    difference there, as the JAX package's LAPACK route does. The IEnKS
+    precisions hold such ties: a rank-l update of ``(k - 1) I`` leaves k - l
+    singular values at k - 1 (32 of 40 at bench config 9), and the tied
+    block of the pullback does not reach the state's gradient."""
+
+    @staticmethod
+    def forward(ctx, a):
+        u, s, vh = torch.linalg.svd(a, full_matrices=False)
+        v = vh.transpose(-1, -2)
+        ctx.save_for_backward(u, s, v)
+        ctx.set_materialize_grads(False)
+        return u, s, v
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, du, ds, dv):
+        from tpu_assim_torch.ops.cuda.svd import svd_pullback
+
+        return svd_pullback(*ctx.saved_tensors, du, ds, dv)
+
+
 def svd(tensor: torch.Tensor, reg_value=0.0,
         use_jacobi: Optional[bool] = None):
     """Reduced SVD with the singular values shifted by ``reg_value``.
@@ -87,12 +114,16 @@ def svd(tensor: torch.Tensor, reg_value=0.0,
     ``v^T``, as :func:`torch.svd`. Large square f32 batches on CUDA go to
     :func:`tpu_assim_torch.ops.cuda.svd.svd_jacobi` (``use_jacobi``,
     :func:`set_jacobi_dispatch` and ``TPU_ASSIM_JACOBI`` control it); the
-    rest to :func:`torch.linalg.svd`.
+    rest to :func:`torch.linalg.svd`. Both routes of a square batch are
+    differentiable through one pullback, finite on exactly tied singular
+    values (:class:`_SquareSVD`).
     """
     if _takes_jacobi(tensor, use_jacobi):
         from tpu_assim_torch.ops.cuda.svd import svd_jacobi
 
         u, s, v = svd_jacobi(tensor)
+    elif tensor.shape[-1] == tensor.shape[-2]:
+        u, s, v = _SquareSVD.apply(tensor)
     else:
         u, s, vh = torch.linalg.svd(tensor, full_matrices=False)
         v = vh.transpose(-1, -2)
