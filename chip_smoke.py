@@ -61,6 +61,16 @@ Phases (one line each; any failure exits non-zero):
     torch.linalg.svd's in f64; the class smoother's gradient through K2
     and K3 against f64; times of the class call and of its backward,
     torch.profiler windows of the class call and the functional step
+ 29 the differentiable path (after 27): K1, K4 and K6 through their
+    autograd.Functions at the main path's shapes (the headline, config
+    7), each gradient of sum(out * c) against the plain version's on the
+    card (f32: the backward is its replay) and in f64, one launch a
+    forward and none a backward, times; the learn-inflation loss
+    (examples/torch_learn_inflation.py) at full width, 4 cycles through K2
+    x 4 and K1 x 4: d loss / d log_rho against f64 central differences,
+    the initial ensemble's gradient against f64, 5 descent steps, times,
+    peak memory, a profiler window; eigh with max_obs through K3: its
+    gradients against f64 (CPU); K5, K7 and K8 raise on a gradient
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -1062,6 +1072,7 @@ def main():
     window2d_phases(dev, gpu, kinds, launches)
     kernelized_phases(dev, gpu, loc, w, kinds, launches)
     halo_phases(dev, gpu, kinds, launches)
+    autograd_phase(dev, gpu, loc, w)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -1093,6 +1104,287 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# -- 29. the differentiable path ----------------------------------------------
+
+F64_GRAD_TOL = 2e-5  # an f32 kernel path's gradient against f64, relative
+                     # to max|f64 gradient| (tests/test_differentiable.py:287)
+FD_RTOL = 1e-3       # d loss / d rho against central differences
+                     # (tests/test_differentiable.py:313)
+
+
+def load_example(name):
+    """The module of ``examples/<name>.py`` beside this script."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cotangent(shape, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def function_grads(label, kernel_fn, plain_fn, inputs, names, seed, dev):
+    """One kernel Function on the card: the gradients of sum(out * c) in
+    every input that requires one (``names``), through the Function (its
+    launches counted: one forward, the backward), through the plain
+    version in f32 on the card (the backward is its replay: 0.0 expected)
+    and in f64 (within F64_GRAD_TOL of max|f64 gradient|); the time of a
+    forward and of a forward and backward (CUDA events, median of 5).
+    Returns the note."""
+    xs = [t.detach().clone().requires_grad_(t.is_floating_point())
+          for t in inputs]
+    wanted = [x for x in xs if x.requires_grad]
+    out, fwd = counted(kernel_fn, *xs)
+    ct = cotangent(out.shape, seed, dev)
+    grads, bwd = counted(torch.autograd.grad, (out * ct).sum(), wanted)
+    check(sum(fwd.values()) == 1 and not bwd,
+          f"{label}: launches forward {fwd}, backward {bwd}")
+    plain = torch.autograd.grad((plain_fn(*xs) * ct).sum(), wanted)
+    x64 = [t.detach().double().requires_grad_() if t.is_floating_point()
+           else t for t in inputs]
+    g64 = torch.autograd.grad((plain_fn(*x64) * ct.double()).sum(),
+                              [x for x in x64 if x.requires_grad])
+    notes = []
+    for name, g, gp, gd in zip(names, grads, plain, g64):
+        check(bool(torch.isfinite(g).all()), f"{label}: d/d{name} not finite")
+        scale = float(gd.abs().max())
+        d_plain = float((g.double() - gp.double()).abs().max())
+        d64 = float((g.double() - gd).abs().max())
+        check(d64 <= F64_GRAD_TOL * scale,
+              f"{label}: d/d{name} {d64!r} from f64 > {F64_GRAD_TOL} * "
+              f"{scale!r}")
+        check(d_plain <= 1e-6 * scale,
+              f"{label}: d/d{name} {d_plain!r} from the plain version's")
+        notes.append(f"d/d{name} plain {d_plain!r}, f64 {d64 / scale:.3e}")
+    ms_f = event_ms(lambda: kernel_fn(*xs), reps=5)
+    ms_fb = event_ms(lambda: torch.autograd.grad(
+        (kernel_fn(*xs) * ct).sum(), wanted), reps=5)
+    return (f"{label}: launches forward {fwd}, backward none; "
+            + "; ".join(notes) + f" (relative to max|f64|); forward "
+            f"{ms_f!r} ms, forward+backward {ms_fb!r} ms")
+
+
+def learn_inflation_f64(twin, nb, degree, radius):
+    """The learn-inflation loss in f64 through the plain versions of K2 and
+    K1 (strict window as the kernel path's), on the twin's tensors:
+    ``loss64(log_rho, ens0)``."""
+    model, dt, n_int = twin["integ"].model, twin["integ"].dt, twin["n_int"]
+    ox = twin["obs_coords"][:, 0].double()
+    gx = twin["grid_coords"][:, 0].double()
+    idx = twin["obs_idx"].long()
+
+    def loss64(log_rho, ens0):
+        reg = (ens0.shape[0] - 1) / torch.exp(log_rho)
+        x, errs = ens0, []
+        for c in range(twin["truths"].shape[0]):
+            x = k2.rk4_steps_plain(model, x, dt, n_int)
+            perts, innov = _normalized_obs_space(
+                x[:, idx], twin["obs_seq"][c].double(),
+                twin["obs_var"].double())
+            mean = x.mean(0)
+            x = k1.window_analysis_plain(
+                perts, innov, ox, gx, (x - mean)[None], mean[None], reg,
+                radius, ens_size=x.shape[0], nb=nb, degree=degree,
+                epsilon=1e-5, taper="gc2", strict=True)[0]
+            errs.append(torch.mean((x.mean(0) - twin["truths"][c].double())
+                                   ** 2))
+        return torch.stack(errs).mean()
+
+    return loss64
+
+
+def autograd_phase(dev, gpu, loc, w):
+    """Phase 29: the differentiable path. (a) K1, K4 and K6 through their
+    autograd.Functions at the main path's shapes against the plain
+    versions' gradients (f32 and f64); (b) the learn-inflation loss at full
+    width through K2 and K1 (launches, d loss / d log_rho against f64
+    central differences, the initial ensemble's gradient against f64,
+    descent, times, memory, a profiler window); (c) the eigh route's
+    gradient through K3; (d) K5, K7 and K8 raise on a gradient."""
+    t_phase = time.perf_counter()
+    # -- (a) each Function at the main path's shapes ----------------------
+    args = window_inputs(w, dev)
+    reg = torch.tensor(39 / INF, device=dev)
+    k1_in = args[:4] + [args[4][None], args[5][None], reg]
+    log(29, function_grads(
+        f"K1 _Window1D (ens 40, grid 10^4, obs 1000, GC r={RADIUS:g}, nb "
+        f"{NB}, degree {DEGREE})",
+        lambda *a: k1.letkf_window_analysis_fused(
+            *a[:6], a[6], RADIUS, 40, nb=NB, degree=DEGREE),
+        lambda *a: k1.window_analysis_plain(
+            *a[:6], a[6], RADIUS, ens_size=40, nb=NB, degree=DEGREE,
+            epsilon=1e-5, taper="gc2", strict=False),
+        k1_in, ("perts", "innov", "obs_x", "grid_x", "sp", "mean", "reg"),
+        SEED + 90, dev) + f" [{gpu}]")
+    wt = [torch.as_tensor(x, device=dev) for x in w]
+    k4_in = nbh_inputs(loc, wt, NB) + [reg]
+    log(29, function_grads(
+        f"K4 _NbhCheb (headline cheb, nb {NB}, degree {DEGREE}, ns 1)",
+        lambda *a: k1.letkf_nbh_analysis_cheb(*a[:4], a[4], 40, DEGREE),
+        lambda *a: k1.nbh_cheb_plain(*a[:4], a[4], 40, DEGREE),
+        k4_in, ("zh", "yh", "sp", "mean", "reg"), SEED + 91, dev)
+        + f" [{gpu}]")
+    w7 = workload_2d(128, 1024, sort_cells=False)
+    nb7 = exact_nb(k1.max_in_support_2d(w7[5], w7[4], R2, R2))
+    blk7 = k1.required_obs_block_2d(w7[5][:, 1], w7[4][:, 1], R2)
+    wt7 = [torch.as_tensor(a, device=dev) for a in w7]
+    perts7, innov7 = _normalized_obs_space(wt7[0][:, wt7[3].long()], wt7[1],
+                                           wt7[2])
+    mean7 = wt7[0].mean(0)
+    args7, width7 = k1.window2d_inputs(perts7, innov7, wt7[5], wt7[4],
+                                       (wt7[0] - mean7)[None], mean7[None],
+                                       39 / INF, R2, R2, blk7)
+    kw7 = dict(width=width7, ens_size=40, nb=nb7, degree=DEGREE,
+               epsilon=1e-5, taper="gc2")
+    log(29, function_grads(
+        f"K6 _Window2D (bench config 7: 128x128, obs 1024, nb {nb7}, block "
+        f"{blk7}, degree {DEGREE})",
+        lambda *a: k1.window2d_banded(*a, **kw7),
+        lambda *a: k1.window2d_plain(*a, strict=False, **kw7),
+        list(args7), ("table", "grid", "sp", "mean", "scal"), SEED + 92,
+        dev) + f" [{gpu}]")
+
+    # -- (b) the learn-inflation loss at full width -------------------------
+    example = load_example("torch_learn_inflation")
+    t0 = time.perf_counter()
+    loss = example.make_loss(cycles=4, ens=40, grid=10000, device=dev,
+                             radius=RADIUS, max_obs=NB, cheb_degree=DEGREE,
+                             obs_every=10, n_int=4)
+    s_twin = time.perf_counter() - t0
+    twin = loss.twin
+    check(twin["obs_idx"].numel() == 1000, "the twin's observations")
+    log_rho = torch.zeros((), device=dev, requires_grad=True)
+    val, fwd = counted(loss, log_rho)
+    (g_rho,), bwd = counted(torch.autograd.grad, val, log_rho)
+    check(fwd == {"rk4_l96": 4, "window1d": 4} and not bwd,
+          f"learn-inflation launches: forward {fwd}, backward {bwd}")
+    loss64 = learn_inflation_f64(twin, NB, DEGREE, RADIUS)
+    x64 = twin["ens0"].double()
+    eps = 1e-3
+    with torch.no_grad():
+        fd = float((loss64(torch.tensor(eps, dtype=torch.float64,
+                                        device=dev), x64)
+                    - loss64(torch.tensor(-eps, dtype=torch.float64,
+                                          device=dev), x64)) / (2 * eps))
+    rel_rho = abs(float(g_rho) - fd) / abs(fd)
+    check(rel_rho <= FD_RTOL, f"d loss / d log_rho {float(g_rho)!r} vs f64 "
+          f"central difference {fd!r}: {rel_rho!r} > {FD_RTOL}")
+    x0 = twin["ens0"].float().requires_grad_()
+    (g_x0,) = torch.autograd.grad(loss(log_rho, x0), x0)
+    x0_64 = x64.clone().requires_grad_()
+    (g_x64,) = torch.autograd.grad(
+        loss64(torch.zeros((), dtype=torch.float64, device=dev), x0_64),
+        x0_64)
+    scale = float(g_x64.abs().max())
+    err_x0 = float((g_x0.double() - g_x64).abs().max())
+    check(err_x0 <= F64_GRAD_TOL * scale, f"the initial ensemble's gradient "
+          f"{err_x0!r} from f64 > {F64_GRAD_TOL} * {scale!r}")
+    history = example.descend(loss, 5, 0.5, dev)
+
+    def forward():
+        return loss(log_rho)
+
+    def forward_backward():
+        return torch.autograd.grad(loss(log_rho), log_rho)
+
+    ms_f = event_ms(forward, reps=5)
+    ms_fb = event_ms(forward_backward, reps=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    forward_backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, rows = device_profile(forward_backward, calls=3)
+    check(busy > 0, "learn-inflation profile: no device time")
+    top = ", ".join(f"{name[:40]} {ms!r}" for name, ms, _ in rows[:5])
+    log(29, f"learn inflation at full width (ens 40, grid 10^4, 1000 obs "
+        f"every 10th point, variance 0.5, GC r={RADIUS:g}, 4 cycles of 4 "
+        f"RK4 steps dt 0.05, fused1d nb {NB} degree {DEGREE}; twin built in "
+        f"{s_twin:.2f} s): loss {float(val.detach())!r}; launches forward "
+        f"{fwd}, "
+        f"backward none; d loss / d log_rho {float(g_rho)!r} vs f64 central "
+        f"difference (plain path, eps {eps}) {fd!r}: rel {rel_rho!r} (bound "
+        f"{FD_RTOL}); d loss / d ens0 {err_x0 / scale:.3e} of max|f64| "
+        f"(bound {F64_GRAD_TOL}); descent (lr 0.5): " + ", ".join(
+            f"step {i} loss {v:.6f} rho {r:.6f}"
+            for i, (v, r) in enumerate(history))
+        + f"; forward {ms_f!r} ms, forward+backward {ms_fb!r} ms (CUDA "
+        f"events, median of 5); memory {base / 2**20:.1f} MiB before, peak "
+        f"{peak / 2**20:.1f} MiB in forward+backward; profiler (3 calls): "
+        f"wall {wall!r} ms, device {busy!r} ms/call, idle "
+        f"{1 - busy / wall:.1%} profiled, {1 - busy / ms_fb:.1%} of the "
+        f"unprofiled {ms_fb!r} ms; kernels ms/call: {top} [{gpu}]")
+
+    # -- (c) the eigh route's gradient through K3 ----------------------------
+    ct = cotangent(tuple(w[0].shape), SEED + 93, dev)
+    ct_cpu = ct.double().cpu()
+    w64_cpu = [torch.as_tensor(a).double() if a.dtype.kind == "f"
+               else torch.as_tensor(a) for a in w]
+
+    def eigh_loss(x, rho, rest, c):
+        analyse = make_letkf_analysis(loc, rho, method="eigh", max_obs=NB,
+                                      selection="window")
+        return (analyse(x, *rest) * c).sum()
+
+    x = wt[0].clone().requires_grad_()
+    rho = torch.tensor(INF, device=dev, requires_grad=True)
+    val, fwd = counted(eigh_loss, x, rho, wt[1:], ct)
+    check(fwd.get("svd_jacobi", 0) >= 1, f"eigh route launches {fwd}")
+    gx, g_rho = torch.autograd.grad(val, (x, rho))
+    t0 = time.perf_counter()
+    x64 = w64_cpu[0].clone().requires_grad_()
+    rho64 = torch.tensor(INF, dtype=torch.float64, requires_grad=True)
+    gx64, _ = torch.autograd.grad(eigh_loss(x64, rho64, w64_cpu[1:], ct_cpu),
+                                  (x64, rho64))
+    with torch.no_grad():
+        fd = float((eigh_loss(w64_cpu[0], INF + eps, w64_cpu[1:], ct_cpu)
+                    - eigh_loss(w64_cpu[0], INF - eps, w64_cpu[1:], ct_cpu))
+                   / (2 * eps))
+    s64 = time.perf_counter() - t0
+    scale = float(gx64.abs().max())
+    err_x = float((gx.double().cpu() - gx64).abs().max())
+    rel_rho = abs(float(g_rho) - fd) / abs(fd)
+    check(err_x <= F64_GRAD_TOL * scale, f"eigh route: d/dstate {err_x!r} "
+          f"from f64 > {F64_GRAD_TOL} * {scale!r}")
+    check(rel_rho <= FD_RTOL, f"eigh route: d/drho {float(g_rho)!r} vs "
+          f"{fd!r}: {rel_rho!r}")
+    log(29, f"eigh with max_obs {NB} (window) through K3 (forward launches "
+        f"{fwd}): d/dstate {err_x / scale:.3e} of max|f64| (bound "
+        f"{F64_GRAD_TOL}; f64 on the CPU, {s64:.1f} s), d/drho "
+        f"{float(g_rho)!r} vs f64 central difference {fd!r}: rel "
+        f"{rel_rho!r} (bound {FD_RTOL}) [{gpu}]")
+
+    # -- (d) the kernels without a VJP raise on a gradient ------------------
+    def raises(label, fn):
+        try:
+            fn()
+        except NotImplementedError as err:
+            return f"{label}: {err}"
+        raise AssertionError(f"{label} computed on an input that requires "
+                             "a gradient instead of raising")
+
+    zh, yh, sp, mean = ns_random(dev, 256, NB, SEED + 94)
+    sym = cotangent((16, 40, 40), SEED + 95, dev)
+    blocks = [cotangent((43, 128), SEED + 96 + i, dev) for i in range(8)]
+    notes = [
+        raises("K5", lambda: k1.letkf_nbh_analysis_fused(
+            zh.requires_grad_(), yh, sp, mean, 39 / INF, 40, NS_ITERS)),
+        raises("K7", lambda: k7.eigh_jacobi(
+            (sym + sym.mT).requires_grad_())),
+        raises("K8", lambda: k8.ring_halo_rdma(
+            [b.requires_grad_() for b in blocks], 8, 1)),
+    ]
+    log(29, "raise on a gradient: " + "; ".join(notes))
+    log(29, f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def smoother_inputs(w, dev, dtype):

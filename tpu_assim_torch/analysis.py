@@ -573,8 +573,11 @@ def _strip_inputs_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
         (perts.to(f32)[:, dev["osel"]] * dev["oval"]).T,
         (innov.to(f32)[dev["osel"]] * dev["oval"])[:, None],
         dev["seg_ox"][:, None], dev["seg_oy"][:, None]], dim=1)  # [S p, k+3]
-    scal = torch.tensor([reg, plan["rx"], plan["ry"]], dtype=f32,
-                        device=perts.device)
+    # reg keeps its graph: the inflation is learnable through the strips
+    scal = torch.cat([
+        torch.as_tensor(reg, dtype=f32, device=perts.device).reshape(1),
+        torch.tensor([plan["rx"], plan["ry"]], dtype=f32,
+                     device=perts.device)])
     args = (table.contiguous(), dev["bands"], dev["grid2"],
             sp.to(f32)[..., dev["perm"]].contiguous(),
             mean.to(f32)[..., dev["perm"]].contiguous(), scal)

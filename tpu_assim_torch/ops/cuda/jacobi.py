@@ -198,8 +198,10 @@ def _launch_eigh(a, sweeps, freeze=FREEZE):
     ``freeze`` eps (``chip_smoke.py`` also runs the JAX kernel's)."""
     if a.requires_grad:
         raise NotImplementedError(
-            "gradients through the CUDA eigh kernel are not ported yet "
-            "(ROADMAP.md Queue 1, the autograd item)")
+            "the CUDA eigh kernel has no VJP (the JAX package's eigh_jacobi "
+            "has none of its own): eigh_psd's gradient is the Daleckii-Krein "
+            "backward of ops.linalg.inv_and_inv_sqrt_psd_eigh, whose forward "
+            "runs without gradients")
     if a.dtype != torch.float32:
         raise TypeError(f"the CUDA eigh kernel takes f32; got {a.dtype}")
     b, kp, _ = a.shape

@@ -38,6 +38,14 @@ Each wrapper runs its plain version (:func:`window_analysis_plain`,
 :func:`nbh_cheb_plain`, :func:`nbh_fused_plain`, :func:`window2d_plain`) for
 CPU tensors and launches its kernel for CUDA tensors. A kernel's library is
 built at its first launch (:mod:`tpu_assim_torch._build`).
+
+K1, K4 and K6 are differentiable, as the JAX package's custom VJPs are:
+when grad mode is on and an input requires a gradient, the wrapper calls
+its ``torch.autograd.Function`` (:class:`_Window1D`, :class:`_NbhCheb`,
+:class:`_Window2D`), whose forward dispatches as the wrapper does and whose
+backward replays the plain version with autograd and pulls the cotangent
+back through it. K5 has no VJP in the JAX package either, and its kernel
+raises on a gradient.
 """
 
 import ctypes
@@ -46,6 +54,7 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from tpu_assim_torch.ops.localization import (
     GaspariCohn,
@@ -82,7 +91,18 @@ __all__ = [
 # Launches of each CUDA kernel, counted by its wrapper.
 LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0, "window2d": 0}
 
-_AUTOGRAD_ITEM = "ROADMAP.md Queue 1, the autograd item"
+# Why a direct launch refuses an input that requires a gradient.
+_NO_GRAD_LAUNCH = {
+    "window1d": "call letkf_window_analysis_fused, whose autograd.Function "
+                "launches on detached inputs",
+    "nbh_cheb": "call letkf_nbh_analysis_cheb, whose autograd.Function "
+                "launches on detached inputs",
+    "window2d": "call window2d_banded, whose autograd.Function launches on "
+                "detached inputs",
+    "nbh_ns": "K5 has no VJP, as the JAX package's letkf_nbh_analysis_fused "
+              "has none; method='cheb' (K4) is the differentiable "
+              "neighborhood solve",
+}
 
 _TAPERS = ("gc2", "gcinf")
 
@@ -239,16 +259,21 @@ def _taper_poly(z: torch.Tensor, taper: str, epsilon: float) -> torch.Tensor:
     sub-epsilon cut to zero (the polynomials of
     :mod:`tpu_assim_torch.ops.localization`)."""
     zero = torch.zeros_like(z)
+    # each branch's argument clamped into its segment's reach: the 1/z term
+    # stays finite at z ~ 0, and the powers at the +float32.max coordinates
+    # of pad slots, so that no inf meets a zero cotangent in the backward
     if taper == "gc2":
-        z_safe = torch.clamp(z, min=0.5)  # keeps the 1/z term finite
+        z_safe = torch.clamp(z, min=0.5, max=2.0)
         w = torch.where(z < 2.0, GaspariCohn._f2(z_safe), zero)
-        w = torch.where(z < 1.0, GaspariCohn._f1(z), w)
+        w = torch.where(z < 1.0, GaspariCohn._f1(torch.clamp(z, max=1.0)),
+                        w)
     elif taper == "gcinf":
-        z_safe = torch.clamp(z, min=0.25)
+        z_safe = torch.clamp(z, min=0.25, max=2.0)
         w = torch.where(z < 2.0, GaspariCohnInf._f4(z_safe), zero)
         w = torch.where(z < 1.5, GaspariCohnInf._f3(z_safe), w)
         w = torch.where(z < 1.0, GaspariCohnInf._f2(z_safe), w)
-        w = torch.where(z < 0.5, GaspariCohnInf._f1(z), w)
+        w = torch.where(z < 0.5,
+                        GaspariCohnInf._f1(torch.clamp(z, max=0.5)), w)
     else:
         raise ValueError(f"unknown taper {taper!r}; use 'gc2' or 'gcinf'")
     return torch.where(w > epsilon, w, zero)
@@ -279,13 +304,15 @@ def _cheb_solve_apply(nodes, dct_mat, zh, yh, sp, mean, reg, ens_size,
     # coefficients of f1(x) = 1/x and f2(x) = 1/(sqrt(x)(1 + sqrt(x))) on
     # [1, lam_ub], per column, from the values at the mapped nodes; in f32
     # whatever the working dtype, as the JAX twin computes them
-    # (preferred_element_type=f32)
+    # (preferred_element_type=f32), and kept in f32: the Clenshaw products
+    # promote them, so that their cotangents also round to f32 as the
+    # twin's do
     half_w = 0.5 * (lam_ub - 1.0)[None, :]
     x_nodes = (1.0 + half_w) + half_w * nodes.reshape(-1, 1)   # [d+1, T]
     sq = torch.sqrt(x_nodes)
     dct32 = dct_mat.to(torch.float32)
-    c1 = (dct32 @ (1.0 / x_nodes).to(torch.float32)).to(zh.dtype)
-    c2 = (dct32 @ (1.0 / (sq * (1.0 + sq))).to(torch.float32)).to(zh.dtype)
+    c1 = dct32 @ (1.0 / x_nodes).to(torch.float32)
+    c2 = dct32 @ (1.0 / (sq * (1.0 + sq))).to(torch.float32)
     c_all = torch.cat([c1[:, None, :], c2[:, None, :].expand(-1, ns, -1)],
                       dim=1)                                   # [d+1, 1+ns, T]
 
@@ -318,7 +345,8 @@ def window_analysis_plain(perts, innov, obs_x, grid_x, sp, mean, reg,
     """Plain PyTorch version of the CUDA kernel, in the dtype of its inputs.
 
     perts [k, o], innov [o], obs_x [o] (sorted), grid_x [g], sp [ns, k, g],
-    mean [ns, g], ``reg`` and ``radius`` numbers -> analysis [ns, k, g].
+    mean [ns, g], ``reg`` a number or a 0-d tensor (its graph kept),
+    ``radius`` a number -> analysis [ns, k, g].
 
     The window follows the kernel: ``start`` is clipped onto ``[0, o - nb]``
     as ``min(max(., 0), o - nb)``, so with ``o < nb`` it goes negative and
@@ -395,13 +423,14 @@ def _check_f32_one_device(name, tensors):
 
 
 def _check_launchable(name, tensors, smem):
-    """The checks of every kernel wrapper before a CUDA launch: no
-    gradients, contiguous inputs, and ``smem`` bytes of shared memory (the
-    smallest block the launch may take) within a Hopper block's."""
+    """The checks of every kernel wrapper before a CUDA launch: no input
+    that requires a gradient (a launch records no graph), contiguous
+    inputs, and ``smem`` bytes of shared memory (the smallest block the
+    launch may take) within a Hopper block's."""
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"gradients through the CUDA kernel {name} are not ported yet "
-            f"({_AUTOGRAD_ITEM})")
+            f"the CUDA kernel {name} records no graph for its inputs that "
+            f"require a gradient: {_NO_GRAD_LAUNCH[name]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"the CUDA kernel {name} needs contiguous inputs")
     from tpu_assim_torch._build import SMEM_PER_BLOCK
@@ -410,6 +439,36 @@ def _check_launchable(name, tensors, smem):
         raise ValueError(
             f"{name}: these shapes need {smem} bytes of shared memory per "
             f"block; a Hopper block has {SMEM_PER_BLOCK}")
+
+
+def _records_graph(*values) -> bool:
+    """Whether a call must record a graph: grad mode is on and one of
+    ``values`` is a tensor that requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)
+
+
+def _reg_tensor(reg, like: torch.Tensor) -> torch.Tensor:
+    """``reg`` (a number or a tensor of one element) as a 0-d tensor of
+    ``like``'s dtype and device, its graph kept."""
+    return torch.as_tensor(reg, dtype=like.dtype,
+                           device=like.device).reshape(())
+
+
+def _pullback(ctx, replay, grad):
+    """The backward of the kernels' Functions: ``replay`` (the plain
+    version) run with autograd on the saved inputs, and the cotangent
+    ``grad`` pulled back through it. Returns a gradient for each saved
+    input that ``ctx.needs_input_grad`` asks for, None for the others."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = replay(*inputs)
+        wanted = [x for x, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad,
+                                         allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 # K1's and K4's routes (csrc/letkf_window1d.cu, csrc/letkf_nbh_cheb.cu): the
@@ -547,6 +606,59 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
     return out
 
 
+def _window1d_forward(perts, innov, obs_x, grid_x, sp, mean, reg, radius,
+                      ens_size, nb, degree, epsilon, taper, strict):
+    """K1's dispatch: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if perts.device.type == "cpu":
+        return window_analysis_plain(
+            perts, innov, obs_x, grid_x, sp, mean, reg, radius,
+            ens_size=ens_size, nb=nb, degree=degree, epsilon=epsilon,
+            taper=taper, strict=strict)
+    return _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg,
+                            radius, nb, degree, epsilon, taper, strict)
+
+
+class _Window1D(torch.autograd.Function):
+    """K1 with a VJP (the port of ``_window_call``,
+    ``tpu_assim/ops/pallas/letkf.py:1279-1310``).
+
+    The forward dispatches as :func:`letkf_window_analysis_fused` does, on
+    detached inputs. The backward replays :func:`window_analysis_plain` on
+    the saved inputs and pulls the cotangent back through it, as JAX's
+    replays ``_window_analysis_ref``: gradients in ``perts``, ``innov``,
+    ``obs_x`` and ``grid_x`` (through the taper; the window is piecewise
+    constant), ``sp``, ``mean`` and ``reg``. The replay runs with
+    ``strict=False``: JAX's reference has no strict poison, so a poisoned
+    column's NaN reaches a loss through the forward alone. It keeps the
+    kernel's window, each observation counted once, also where ``o < nb``
+    and JAX's reference clamps its gather (ROADMAP Queue 3)."""
+
+    @staticmethod
+    def forward(ctx, perts, innov, obs_x, grid_x, sp, mean, reg, radius,
+                ens_size, nb, degree, epsilon, taper, strict):
+        ctx.save_for_backward(perts, innov, obs_x, grid_x, sp, mean, reg)
+        ctx.statics = dict(radius=radius, ens_size=ens_size, nb=nb,
+                           degree=degree, epsilon=epsilon, taper=taper)
+        return _window1d_forward(
+            *(t.detach() for t in (perts, innov, obs_x, grid_x, sp, mean,
+                                   reg)),
+            radius, ens_size, nb, degree, epsilon, taper, strict)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        st = ctx.statics
+
+        def replay(perts, innov, obs_x, grid_x, sp, mean, reg):
+            return window_analysis_plain(
+                perts, innov, obs_x, grid_x, sp, mean, reg, st["radius"],
+                ens_size=st["ens_size"], nb=st["nb"], degree=st["degree"],
+                epsilon=st["epsilon"], taper=st["taper"], strict=False)
+
+        return _pullback(ctx, replay, grad) + (None,) * 7
+
+
 def letkf_window_analysis_fused(
     perts: torch.Tensor,
     innov: torch.Tensor,
@@ -589,7 +701,9 @@ def letkf_window_analysis_fused(
     taper : ``"gc2"`` (GC(z,1/2,c)) or ``"gcinf"`` (GC(z,inf,c)).
 
     Every tensor is f32 on one device. Returns the analysis [k, g] (or
-    [ns, k, g]).
+    [ns, k, g]). Differentiable in every tensor and in ``reg`` through
+    :class:`_Window1D` when grad mode is on and one of them requires a
+    gradient.
     """
     del tile, obs_block
     device = _check_f32_one_device("letkf_window_analysis_fused",
@@ -611,14 +725,12 @@ def letkf_window_analysis_fused(
             f"{tuple(grid_x.shape)}, sp {tuple(sp.shape)}, mean "
             f"{tuple(mean.shape)}, ens_size {ens_size}, nb {nb}, "
             f"degree {degree}")
-    if device.type == "cpu":
-        out = window_analysis_plain(
-            perts, innov, obs_x, grid_x, sp3, mean2, float(reg), radius,
-            ens_size=ens_size, nb=nb, degree=degree, epsilon=epsilon,
-            taper=taper, strict=strict)
+    args = (perts, innov, obs_x, grid_x, sp3, mean2)
+    statics = (radius, ens_size, nb, degree, epsilon, taper, strict)
+    if _records_graph(*args, reg):
+        out = _Window1D.apply(*args, _reg_tensor(reg, perts), *statics)
     else:
-        out = _launch_window1d(perts, innov, obs_x, grid_x, sp3, mean2, reg,
-                               radius, nb, degree, epsilon, taper, strict)
+        out = _window1d_forward(*args, reg, *statics)
     return out if multi else out[0]
 
 
@@ -629,7 +741,8 @@ def nbh_cheb_plain(zh, yh, sp, mean, reg, ens_size, degree):
 
     zh [nb, k, g] sqrt-taper-scaled neighborhood perturbations; yh [nb, g]
     scaled innovations; sp [ns, k, g] state perturbations; mean [ns, g];
-    ``reg`` a number -> analysis [ns, k, g].
+    ``reg`` a number or a 0-d tensor (its graph kept) -> analysis
+    [ns, k, g].
     """
     dtype, device = zh.dtype, zh.device
     nodes, dct = (torch.from_numpy(a).to(dtype=dtype, device=device)
@@ -679,6 +792,42 @@ def _launch_nbh_cheb(zh, yh, sp, mean, reg, degree):
     return out
 
 
+def _nbh_cheb_forward(zh, yh, sp, mean, reg, ens_size, degree):
+    """K4's dispatch: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if zh.device.type == "cpu":
+        return nbh_cheb_plain(zh, yh, sp, mean, reg, ens_size, degree)
+    return _launch_nbh_cheb(zh, yh, sp, mean, reg, degree)
+
+
+class _NbhCheb(torch.autograd.Function):
+    """K4 with a VJP (the port of ``_cheb_call``,
+    ``tpu_assim/ops/pallas/letkf.py:627-661``): the forward dispatches as
+    :func:`letkf_nbh_analysis_cheb` does, on detached inputs; the backward
+    replays :func:`nbh_cheb_plain` on the saved inputs and pulls the
+    cotangent back through it, as JAX's replays ``_cheb_solve_apply``:
+    gradients in ``zh``, ``yh``, ``sp``, ``mean`` and ``reg``, the exact
+    gradient of the degree-``degree`` Chebyshev approximation that the
+    forward computes."""
+
+    @staticmethod
+    def forward(ctx, zh, yh, sp, mean, reg, ens_size, degree):
+        ctx.save_for_backward(zh, yh, sp, mean, reg)
+        ctx.statics = (ens_size, degree)
+        return _nbh_cheb_forward(
+            *(t.detach() for t in (zh, yh, sp, mean, reg)), ens_size, degree)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        ens_size, degree = ctx.statics
+
+        def replay(zh, yh, sp, mean, reg):
+            return nbh_cheb_plain(zh, yh, sp, mean, reg, ens_size, degree)
+
+        return _pullback(ctx, replay, grad) + (None, None)
+
+
 def letkf_nbh_analysis_cheb(
     zh: torch.Tensor,
     yh: torch.Tensor,
@@ -706,7 +855,9 @@ def letkf_nbh_analysis_cheb(
         kernel's blocks are :func:`nbh_cheb_plan`'s.
 
     Every tensor is f32 on one device. Returns the analysis [k, g] (or
-    [ns, k, g]).
+    [ns, k, g]). Differentiable in every tensor and in ``reg`` through
+    :class:`_NbhCheb` when grad mode is on and one of them requires a
+    gradient.
     """
     del tile
     device = _check_f32_one_device("letkf_nbh_analysis_cheb",
@@ -722,10 +873,11 @@ def letkf_nbh_analysis_cheb(
             f"shapes do not fit: zh {tuple(zh.shape)}, yh {tuple(yh.shape)}, "
             f"sp {tuple(sp.shape)}, mean {tuple(mean.shape)}, ens_size "
             f"{ens_size}, degree {degree}")
-    if device.type == "cpu":
-        out = nbh_cheb_plain(zh, yh, sp3, mean2, float(reg), ens_size, degree)
+    args = (zh, yh, sp3, mean2)
+    if _records_graph(*args, reg):
+        out = _NbhCheb.apply(*args, _reg_tensor(reg, zh), ens_size, degree)
     else:
-        out = _launch_nbh_cheb(zh, yh, sp3, mean2, reg, degree)
+        out = _nbh_cheb_forward(*args, reg, ens_size, degree)
     return out if multi else out[0]
 
 
@@ -1096,6 +1248,53 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     return out
 
 
+def _window2d_forward(table, bands, grid, sp, mean, scal, width, ens_size,
+                      nb, degree, epsilon, taper, strict, tile):
+    """K6's dispatch: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if table.device.type == "cpu":
+        return window2d_plain(table, bands, grid, sp, mean, scal,
+                              width=width, ens_size=ens_size, nb=nb,
+                              degree=degree, epsilon=epsilon, taper=taper,
+                              strict=strict, tile=tile)
+    return _launch_window2d(table, bands, grid, sp, mean, scal, width, nb,
+                            degree, tile, epsilon, taper, strict)
+
+
+class _Window2D(torch.autograd.Function):
+    """K6 with a VJP (the port of ``_window2d_dma_call``,
+    ``tpu_assim/ops/pallas/letkf.py:1951-1983``, and of ``_window2d_call``,
+    ``:1832-1859``): the forward dispatches as :func:`window2d_banded`
+    does, on detached inputs; the backward replays :func:`window2d_plain`
+    with ``strict=False`` (JAX's ``_window2d_dma_ref`` has no strict
+    poison) on the saved inputs and pulls the cotangent back through it:
+    gradients in ``table``, ``grid``, ``sp``, ``mean`` and ``scal`` (reg
+    and the radii). ``bands`` is int32 and gets None (JAX's f32 bands get
+    zero)."""
+
+    @staticmethod
+    def forward(ctx, table, bands, grid, sp, mean, scal, width, ens_size, nb,
+                degree, epsilon, taper, strict, tile):
+        ctx.save_for_backward(table, bands, grid, sp, mean, scal)
+        ctx.statics = dict(width=width, ens_size=ens_size, nb=nb,
+                           degree=degree, epsilon=epsilon, taper=taper,
+                           tile=tile)
+        return _window2d_forward(
+            *(t.detach() for t in (table, bands, grid, sp, mean, scal)),
+            width, ens_size, nb, degree, epsilon, taper, strict, tile)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        st = ctx.statics
+
+        def replay(table, bands, grid, sp, mean, scal):
+            return window2d_plain(table, bands, grid, sp, mean, scal,
+                                  strict=False, **st)
+
+        return _pullback(ctx, replay, grad) + (None,) * 8
+
+
 def window2d_banded(
     table: torch.Tensor,
     bands: torch.Tensor,
@@ -1130,7 +1329,9 @@ def window2d_banded(
     width : slots per slice (the whole table's row count when every tile
         sees every observation).
 
-    Returns the analysis [ns, k, G].
+    Returns the analysis [ns, k, G]. Differentiable in every tensor but
+    ``bands`` through :class:`_Window2D` when grad mode is on and one of
+    them requires a gradient.
     """
     device = _check_f32_one_device("window2d_banded",
                                    (table, grid, sp, mean, scal))
@@ -1149,13 +1350,11 @@ def window2d_banded(
             f"{tuple(bands.shape)} {bands.dtype}, grid {tuple(grid.shape)}, "
             f"sp {tuple(sp.shape)}, mean {tuple(mean.shape)}, scal "
             f"{tuple(scal.shape)}, ens_size {k}, width {width}, tile {tile}")
-    if device.type == "cpu":
-        return window2d_plain(table, bands, grid, sp, mean, scal,
-                              width=width, ens_size=k, nb=nb, degree=degree,
-                              epsilon=epsilon, taper=taper, strict=strict,
-                              tile=tile)
-    return _launch_window2d(table, bands, grid, sp, mean, scal, width, nb,
-                            degree, tile, epsilon, taper, strict)
+    args = (table, bands, grid, sp, mean, scal, width, k, nb, degree,
+            epsilon, taper, strict, tile)
+    if _records_graph(table, grid, sp, mean, scal):
+        return _Window2D.apply(*args)
+    return _window2d_forward(*args)
 
 
 def letkf_window_analysis_fused_2d(

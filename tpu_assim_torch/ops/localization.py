@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "BaseLocalization",
     "GaspariCohn",
     "GaspariCohnInf",
     "abs_distance",
@@ -78,6 +79,36 @@ def _batched_dist(dist_func, grid_coords, obs_coords):
     return torch.vmap(
         lambda gc: torch.atleast_2d(dist_func(gc, obs_coords))
     )(grid_coords)
+
+
+class BaseLocalization:
+    """Base localization API (the port of
+    :class:`tpu_assim.ops.localization.BaseLocalization`): a subclass gives
+    :meth:`localize_obs` for one grid column, and :meth:`taper_weights`
+    maps it over every column."""
+
+    def localize_obs(self, grid_coord: torch.Tensor,
+                     obs_coords: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(use_obs, weights)`` for one grid column: a boolean mask of the
+        usable observations and their taper weights."""
+        raise NotImplementedError
+
+    def localize_cov(self):
+        """Covariance localization: declared, never implemented (as in the
+        JAX package)."""
+        raise NotImplementedError
+
+    def taper_weights(self, grid_coords: torch.Tensor,
+                      obs_coords: torch.Tensor) -> torch.Tensor:
+        """Weights ``[g, o]`` for every (grid column, observation) pair,
+        zero where :meth:`localize_obs` does not use the observation."""
+
+        def one_column(coord):
+            use_obs, weights = self.localize_obs(coord, obs_coords)
+            return torch.where(use_obs, weights, torch.zeros_like(weights))
+
+        return torch.vmap(one_column)(grid_coords)
 
 
 class GaspariCohn:

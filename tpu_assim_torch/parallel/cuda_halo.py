@@ -23,7 +23,6 @@ __all__ = ["LAUNCHES", "ring_halo_plain", "ring_halo_rdma"]
 # Launches of the CUDA kernel, counted by its wrapper.
 LAUNCHES = {"halo_ring": 0}
 
-_AUTOGRAD_ITEM = "ROADMAP.md Queue 1, the autograd item"
 
 
 def _halo_offsets(n_shards: int, halo_width: int):
@@ -109,8 +108,9 @@ def _launch_halo_ring(blocks, slot_offsets):
                         f"{first.dtype}")
     if any(b.requires_grad for b in blocks):
         raise NotImplementedError(
-            "gradients through the CUDA kernel halo_ring are not ported yet "
-            f"({_AUTOGRAD_ITEM})")
+            "the CUDA kernel halo_ring has no VJP, as the JAX package's RDMA "
+            "exchange has none: comm='ppermute' (ring_halo_plain) "
+            "differentiates")
     if not all(b.is_contiguous() for b in blocks):
         raise ValueError("the CUDA kernel halo_ring needs contiguous blocks")
     rows, cols = first.shape

@@ -1,5 +1,5 @@
 """Utilities (port of :mod:`tpu_assim.utils`): the property and scalar
-helpers and the HDF5 weight checkpoint."""
+helpers, the HDF5 weight checkpoint and the phase timers and traces."""
 
 from tpu_assim_torch.utils.checkpoint import (
     load_arrays,
@@ -12,6 +12,13 @@ from tpu_assim_torch.utils.decorators import (
     ensure_array,
     lazy_property,
 )
+from tpu_assim_torch.utils.profiling import (
+    phase,
+    report,
+    reset,
+    timings,
+    trace,
+)
 
 __all__ = [
     "bound_scalar",
@@ -19,6 +26,11 @@ __all__ = [
     "lazy_property",
     "load_arrays",
     "load_weights",
+    "phase",
+    "report",
+    "reset",
     "save_arrays",
     "save_weights",
+    "timings",
+    "trace",
 ]
