@@ -6,11 +6,15 @@ IEnKS smoother (Jacobi SVD + fused RK4) as a step and through its class
 API, with its gradient through both kernels, the neighborhood solvers (cheb,
 pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
 localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
-LETKF over 8 virtual shards of the card (halo exchange kernel K8) at the
-reference benchmark shapes, checks them against f64 oracles, and times the
-kernels.
+LETKF over 8 virtual shards of the card (halo exchange kernel K8), also
+across two processes, and the TerrSysMP (COSMO/CLM) adapters at COSMO-DE
+width at the reference benchmark shapes, checks them against f64 oracles,
+and times the kernels.
 
     python3 chip_smoke.py
+
+(With a worker flag, ``--phase30-worker``, ``--phase30-nccl`` or
+``--loader-passes``, it is one of phase 30's children.)
 
 Phases (one line each; any failure exits non-zero):
   1 device and kernel build     7 times (CUDA events around 10 chained
@@ -71,6 +75,22 @@ Phases (one line each; any failure exits non-zero):
     the initial ensemble's gradient against f64, 5 descent steps, times,
     peak memory, a profiler window; eigh with max_obs through K3: its
     gradients against f64 (CPU); K5, K7 and K8 raise on a gradient
+ 30 the halo LETKF across processes (after 29): two children of this
+    script share the card over gloo, 4 virtual shards each, and run
+    phase 26's config-3 window (K1, 4 launches a process) and top-k
+    ppermute (K4, 4) analyses from their own blocks and from whole tensors,
+    each bit for bit phase 26's; comm="rdma" raises across them; their
+    DCP weight checkpoint loads whole equal to one process's; a child's
+    NCCL world of one (process_info, mesh, both analyses as phase 26's);
+    the native obs loader (built, repaired) feeds 6 config-3 files at
+    depth 3 through the window analysis, and a child makes 200 passes;
+    each child under a hard time limit; times of 2 processes and of 1
+ 31 TerrSysMP at COSMO-DE width: 461 x 421 columns x vgrid 19 (11 levels,
+    8 soil layers), ens 40, 500 T2m stations: preprocess_cosmo, the class
+    LETKF (cheb, top-k, K4 once a chunk of 65536) with CosmoT2mOperator and
+    a horizontal GC taper, postprocess_cosmo; NaN exactly at the vgrid
+    padding, 4096 columns against f64 eigh, the COSMO and CLM round trips
+    the identity; host times
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -91,9 +111,12 @@ Imports nothing of JAX.
 
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -143,8 +166,17 @@ from tpu_assim_torch.ops.localization import (
     neighborhood_select_window,
     safe_sqrt_keep_nan,
 )
+from tpu_assim_torch.models.terrsysmp import (
+    postprocess_clm,
+    postprocess_cosmo,
+    preprocess_clm,
+    preprocess_cosmo,
+)
+from tpu_assim_torch.obs_ops.terrsysmp import CosmoT2mOperator
+from tpu_assim_torch.ops.etkf import letkf_weights_dense
 from tpu_assim_torch.parallel import cuda_halo as k8
-from tpu_assim_torch.parallel import make_grid_mesh
+from tpu_assim_torch.parallel import make_grid_mesh, multihost
+from tpu_assim_torch.parallel import sharded_letkf_weights
 from tpu_assim_torch.parallel.halo import (
     _halo_max_in_support,
     halo_letkf_analysis,
@@ -154,7 +186,12 @@ from tpu_assim_torch.parallel.halo import (
     shard_observations_2d,
 )
 from tpu_assim_torch.parallel.mesh import Mesh
+from tpu_assim_torch.runtime import native, obs_pipeline
 from tpu_assim_torch.transform import MultiplicativeInflation
+from tpu_assim_torch.utils.checkpoint import (
+    load_weights_sharded,
+    save_weights_sharded,
+)
 
 SEED = 42
 TOL = 1e-5          # f32 budget, relative to max|reference|
@@ -1071,8 +1108,10 @@ def main():
     nbh_phases(dev, gpu, loc, w, wt, w64, wc, kinds, launches)
     window2d_phases(dev, gpu, kinds, launches)
     kernelized_phases(dev, gpu, loc, w, kinds, launches)
-    halo_phases(dev, gpu, kinds, launches)
+    ref26 = halo_phases(dev, gpu, kinds, launches)
     autograd_phase(dev, gpu, loc, w)
+    multiprocess_phase(dev, gpu, ref26)
+    terrsysmp_phase(dev, gpu)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -2534,6 +2573,7 @@ def kernelized_phases(dev, gpu, loc, w, kinds, launches):
 
 
 N_SHARDS = 8        # virtual shards of the one card
+G3, O3 = 10240, 1024  # bench config 3: grid columns and observations
 
 
 def k8_vs_plain(rng, dev, n, rows, cols, halo, dtype=torch.float32):
@@ -2606,10 +2646,24 @@ def k8_times(blocks, halo):
             ev_kernel, ev_plain, bound(moved, 0), moved)
 
 
+def config3():
+    """Bench config 3 for the halo analyses: the workload (ens 40, grid
+    10 240, 1 024 obs), the halo analysis's whole arguments over 8 shards
+    (numpy) and its options (the exact window, halo, degree)."""
+    w3 = build_workload(40, G3, O3)
+    sh = shard_observations(w3[1], w3[2], w3[3], w3[5], G3, N_SHARDS)
+    nb3 = exact_nb(_halo_max_in_support(sh[3], sh[4], N_SHARDS, RADIUS,
+                                        "gc2", 1e-5, 1))
+    opts = dict(max_obs=nb3, inf_factor=INF, cheb_degree=DEGREE,
+                halo_width=halo_width_for(RADIUS, G3 / N_SHARDS))
+    return w3, (w3[0],) + sh[:5] + (w3[4],), opts
+
+
 def halo_phases(dev, gpu, kinds, launches):
     """Phases 25-27: K8 against its plain version, the obs-sharded halo
     analyses over 8 virtual shards of the card (bench configs 3 and 7)
-    against f64 oracles, and times."""
+    against f64 oracles, and times. Returns phase 26's config-3 window and
+    top-k (ppermute) analyses, their functions and arguments."""
     rng = np.random.RandomState(SEED + 10)
     # -- 25. K8 against its plain version ----------------------------------
     # bench config 3: 8 shards of 128 obs, packed rows k + 3 = 43
@@ -2630,18 +2684,12 @@ def halo_phases(dev, gpu, kinds, launches):
             for n, rows, cols, halo, dtype in cases))
 
     # -- 26. the halo analyses on 8 virtual shards -------------------------
-    g3, o3 = 10240, 1024
-    w3 = build_workload(40, g3, o3)
+    g3, o3 = G3, O3
+    w3, whole3, opts = config3()
+    nb3, hw = opts["max_obs"], opts["halo_width"]
     mesh = make_grid_mesh(N_SHARDS, devices=[dev] * N_SHARDS)
-    sh = shard_observations(w3[1], w3[2], w3[3], w3[5], g3, N_SHARDS)
-    nb3 = exact_nb(_halo_max_in_support(sh[3], sh[4], N_SHARDS, RADIUS,
-                                        "gc2", 1e-5, 1))
-    hw = halo_width_for(RADIUS, g3 / N_SHARDS)
-    args3 = [torch.as_tensor(a, device=dev)
-             for a in (w3[0],) + sh[:5] + (w3[4],)]
+    args3 = [torch.as_tensor(a, device=dev) for a in whole3]
     loc = GaspariCohn((RADIUS,), coord1_distance)
-    opts = dict(max_obs=nb3, halo_width=hw, inf_factor=INF,
-                cheb_degree=DEGREE)
     window3 = halo_letkf_analysis(mesh, loc, local_method="window", **opts)
     rdma3 = halo_letkf_analysis(mesh, loc, use_pallas=True, comm="rdma",
                                 **opts)
@@ -2743,9 +2791,533 @@ def halo_phases(dev, gpu, kinds, launches):
     notes.append(f"K6 over the 8 tiles of config 7 {k6_ms!r} ms of device "
                  f"time per call")
     log(27, "torch.profiler, 5 calls each: " + "; ".join(notes) + f" [{gpu}]")
+    return {"window": out_w, "pallas": out_p, "window_fn": window3,
+            "pallas_fn": ppermute3, "args": args3}
 
+
+# -- 30. the halo LETKF across processes --------------------------------------
+
+GROUP_TIMEOUT = 60   # s: the process groups' timeout
+CHILD_LIMIT = 240    # s: each child process's hard limit
+LOADER_LIMIT = 60    # s: the 200 loader passes
+LOADER_PASSES = 200
+SPLIT3 = (1, 0, 0, 0, 0, 0, 0)  # the split dim of each halo argument
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def child(*args):
+    """This script started again with ``args`` (a worker mode)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             *map(str, args)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def join(procs, limit):
+    """Waits for every child up to ``limit`` seconds in all; kills them all
+    and fails on expiry or on a child that failed. Returns their output."""
+    deadline = time.perf_counter() + limit
+    outs = []
+    try:
+        for label, proc in procs:
+            out, err = proc.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))
+            check(proc.returncode == 0, f"{label} exited {proc.returncode}: "
+                  + err[-3000:])
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        for _, proc in procs:
+            proc.kill()
+            proc.communicate()
+        raise AssertionError(f"{[label for label, _ in procs]} outlived "
+                             f"their {limit} s limit and were killed")
+    return outs
+
+
+def config3_obs_space(w3, dev):
+    """Config 3's replicated obs space for the grid-sharded weights:
+    (perts, innovations, grid info, obs info) on ``dev``."""
+    state = torch.as_tensor(w3[0], device=dev)
+    idx = torch.as_tensor(w3[3], device=dev).long()
+    perts, innov = _normalized_obs_space(
+        state[:, idx], *(torch.as_tensor(a, device=dev) for a in w3[1:3]))
+    return (perts, innov, _with_time(torch.as_tensor(w3[4], device=dev)),
+            _with_time(torch.as_tensor(w3[5], device=dev)))
+
+
+def synced_ms(fn, args, reps=10):
+    """Median ms per call of ``fn(*args)``, each call between barriers of
+    every process (their cost included)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase30_worker(rank, port, out):
+    """Rank ``rank`` of two processes (gloo) that share the card, 4
+    virtual shards each: the config-3 halo analyses (window through K1,
+    top-k through K4, ppermute) from this process's blocks and from whole
+    tensors, with the launches of each; comm="rdma" raising; the
+    grid-sharded weights saved by DCP; results and times to ``out``."""
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize_multihost(f"tcp://localhost:{port}", 2, rank,
+                                   timeout=GROUP_TIMEOUT)
+    report = {"backend": torch.distributed.get_backend()}
+    mesh = multihost.global_grid_mesh(devices=[dev] * 4)
+    check(mesh.owners.tolist() == [0] * 4 + [1] * 4, f"owners {mesh.owners}")
+    report["info"] = multihost.process_info(devices=[dev] * 4)
+    w3, whole3, opts = config3()
+    loc = GaspariCohn((RADIUS,), coord1_distance)
+    try:
+        halo_letkf_analysis(mesh, loc, use_pallas=True, comm="rdma", **opts)
+        report["rdma"] = None
+    except NotImplementedError as exc:
+        report["rdma"] = str(exc)
+
+    def local(a, dim):
+        a = torch.as_tensor(a)
+        half = a.shape[dim] // 2
+        return a.narrow(dim, rank * half, half)
+
+    blocks = [multihost.host_local_to_global(mesh, local(a, d), axis=d)
+              for a, d in zip(whole3, SPLIT3)]
+    whole = [torch.as_tensor(a, device=dev) for a in whole3]
+    results = {}
+    for name, kw in (("window", dict(local_method="window")),
+                     ("pallas", dict(use_pallas=True))):
+        fn = halo_letkf_analysis(mesh, loc, **kw, **opts)
+        got, report[name + "_launches"] = counted(fn, *blocks)
+        check(isinstance(got, multihost.GlobalTensor)
+              and sorted(got.blocks) == [(s,) for s in
+                                         range(4 * rank, 4 * rank + 4)],
+              f"{name}: this process's blocks are {sorted(got.blocks)}")
+        results[name] = got.gather().cpu()
+        results[name + "_whole"] = fn(*whole).cpu()
+        report[name + "_ms"] = synced_ms(fn, blocks)
+        report[name + "_whole_ms"] = synced_ms(fn, whole)
+    perts, innov, ginfo, oinfo = config3_obs_space(w3, dev)
+    weights = sharded_letkf_weights(
+        mesh, loc, perts, innov,
+        multihost.host_local_to_global(mesh, local(ginfo, 0), axis=0),
+        oinfo, INF)
+    save_weights_sharded(os.path.join(out, "weights"), weights)
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase30_nccl(port, out):
+    """A world of one process over NCCL: its process info and mesh, and
+    the config-3 halo analyses over 8 virtual shards under it."""
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize_multihost(f"tcp://localhost:{port}", 1, 0,
+                                   timeout=GROUP_TIMEOUT)
+    mesh = multihost.global_grid_mesh(devices=[dev] * N_SHARDS)
+    report = {"backend": torch.distributed.get_backend(),
+              "info": multihost.process_info(devices=[dev] * N_SHARDS),
+              "mesh": [mesh.size, mesh.owners is None,
+                       sorted({str(d) for d in mesh.devices.flat})]}
+    w3, whole3, opts = config3()
+    loc = GaspariCohn((RADIUS,), coord1_distance)
+    whole = [torch.as_tensor(a, device=dev) for a in whole3]
+    results = {name: halo_letkf_analysis(mesh, loc, **kw, **opts)(
+        *whole).cpu() for name, kw in (("window", dict(local_method="window")),
+                                       ("pallas", dict(use_pallas=True)))}
+    torch.save(results, os.path.join(out, "nccl.pt"))
+    with open(os.path.join(out, "nccl.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def obs_files(directory, w3):
+    """Six TAOB files of config-3 observations: file 0 holds config 3's
+    own, file i its values moved by 0.05 i standard normals."""
+    rng = np.random.RandomState(SEED + 30)
+    paths = []
+    for i in range(6):
+        vals = w3[1] + (0.05 * i * rng.normal(size=O3)).astype(np.float32)
+        paths.append(os.path.join(directory, f"cycle{i}.taob"))
+        obs_pipeline.write_obs_file(paths[-1], vals, w3[2], w3[3], w3[5])
+    return paths
+
+
+def loader_passes(directory, passes):
+    """``passes`` loader passes over the six files at depth 3 (the
+    repaired race): every batch in file order and equal to
+    ``shard_observations`` of its file."""
+    paths = [os.path.join(directory, f"cycle{i}.taob") for i in range(6)]
+    refs = []
+    for path in paths:
+        vals, var, gidx, coords = obs_pipeline.read_obs_file(path)
+        refs.append(shard_observations(vals, var, gidx, coords, G3,
+                                       N_SHARDS))
+    cap = refs[0][5]
+    for n in range(int(passes)):
+        with obs_pipeline.ObsLoader(paths, G3, N_SHARDS, cap=cap,
+                                    depth=3) as loader:
+            for i, (idx, *arrays) in enumerate(loader):
+                check(idx == i, f"pass {n}: file {idx} came {i}th")
+                for got, want in zip(arrays, refs[i][:5]):
+                    check(np.array_equal(got.reshape(want.shape), want),
+                          f"pass {n}, file {i}: a batch differs")
+    print(passes, flush=True)
+
+
+def multiprocess_phase(dev, gpu, ref26):
+    """Phase 30: the config-3 halo analyses across two processes that
+    share the card (gloo, 4 virtual shards each) against phase 26's
+    one-process analyses, bit for bit; comm="rdma" raising across them;
+    a world of one process over NCCL; the obs-ingest loader feeding the
+    halo analysis, and 200 loader passes in a child; the sharded weight
+    checkpoint written by the two processes."""
+    t_phase = time.perf_counter()
+    check(native.native_available() and obs_pipeline._lib() is not None,
+          "the native runtime (runtime/cpp) did not build")
+    w3, whole3, opts = config3()
+    with tempfile.TemporaryDirectory() as out:
+        paths = obs_files(out, w3)
+        gloo, nccl = free_port(), free_port()
+        procs = [(f"rank {r}", child("--phase30-worker", r, gloo, out))
+                 for r in (0, 1)]
+        procs.append(("nccl", child("--phase30-nccl", nccl, out)))
+        procs.append(("loader", child("--loader-passes", out,
+                                      LOADER_PASSES)))
+        t_children = time.perf_counter()
+        # meanwhile: each file through the loader (depth 3) into the
+        # one-process window analysis, against the file's own sharding
+        window = ref26["window_fn"]
+        t0 = time.perf_counter()
+        cap = len(whole3[1]) // N_SHARDS
+        n_batches = 0
+        with obs_pipeline.ObsLoader(paths, G3, N_SHARDS, cap=cap, depth=3,
+                                    device=dev) as loader:
+            for i, (idx, vals, var, lidx, coords, valid) in enumerate(
+                    loader):
+                check(idx == i, f"loader: file {idx} came {i}th")
+                batch = [vals.float(), var.float(), lidx,
+                         coords.float(), valid.float()]
+                got = window(ref26["args"][0], *batch, ref26["args"][6])
+                fvals, fvar, gidx, fcoords = obs_pipeline.read_obs_file(
+                    paths[i])
+                sh = shard_observations(fvals.astype(np.float32),
+                                        fvar.astype(np.float32), gidx,
+                                        fcoords.astype(np.float32), G3,
+                                        N_SHARDS)
+                same_bits(got, window(ref26["args"][0], *(
+                    torch.as_tensor(a, device=dev) for a in sh[:5]),
+                    ref26["args"][6]), f"loader batch {i}")
+                if i == 0:
+                    same_bits(got, ref26["window"], "loader batch 0 against "
+                              "phase 26")
+                n_batches += 1
+        check(n_batches == 6, f"the loader gave {n_batches} batches")
+        s_ingest = time.perf_counter() - t0
+        outs = join(procs, CHILD_LIMIT)
+        s_children = time.perf_counter() - t_children
+        check(outs[3].split()[-1] == str(LOADER_PASSES),
+              f"loader passes: {outs[3][-200:]}")
+        notes = []
+        reports = []
+        for r in (0, 1):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                rep = json.load(f)
+            reports.append(rep)
+            res = torch.load(os.path.join(out, f"rank{r}.pt"))
+            check(rep["backend"] == "gloo", f"rank {r}: {rep['backend']}")
+            check(rep["info"] == {"process_index": r, "process_count": 2,
+                                  "local_devices": 4, "global_devices": 8},
+                  f"rank {r}: process_info {rep['info']}")
+            check(rep["rdma"] is not None and "peer pointers" in rep["rdma"],
+                  f"rank {r}: comm='rdma' across processes did not raise")
+            check(rep["window_launches"] == {"window1d": 4},
+                  f"rank {r}: window launches {rep['window_launches']}")
+            check(rep["pallas_launches"] == {"nbh_cheb": 4},
+                  f"rank {r}: top-k launches {rep['pallas_launches']}")
+            for name in ("window", "pallas"):
+                for form in ("", "_whole"):
+                    same_bits(res[name + form].to(dev), ref26[name],
+                              f"rank {r} {name}{form} against phase 26")
+        with open(os.path.join(out, "nccl.json")) as f:
+            rep_nccl = json.load(f)
+        res = torch.load(os.path.join(out, "nccl.pt"))
+        check(rep_nccl["backend"] == "nccl", f"nccl: {rep_nccl['backend']}")
+        check(rep_nccl["info"] == {"process_index": 0, "process_count": 1,
+                                   "local_devices": N_SHARDS,
+                                   "global_devices": N_SHARDS},
+              f"nccl: process_info {rep_nccl['info']}")
+        check(rep_nccl["mesh"] == [N_SHARDS, True, ["cuda:0"]],
+              f"nccl: mesh {rep_nccl['mesh']}")
+        for name in ("window", "pallas"):
+            same_bits(res[name].to(dev), ref26[name],
+                      f"nccl {name} against phase 26")
+        loc = GaspariCohn((RADIUS,), coord1_distance)
+        weights = sharded_letkf_weights(
+            make_grid_mesh(N_SHARDS, devices=[dev] * N_SHARDS), loc,
+            *config3_obs_space(w3, dev), INF)
+        same_bits(load_weights_sharded(os.path.join(out, "weights"),
+                                       device=dev), weights,
+                  "sharded weights written by 2 processes")
+    ms_one = {name: median_ms(lambda: ref26[name + "_fn"](*ref26["args"]),
+                              reps=10, inner=3)
+              for name in ("window", "pallas")}
+    for name, label in (("window", "window (K1)"),
+                        ("pallas", "top-k use_pallas ppermute (K4)")):
+        notes.append(
+            f"{label}: 2 processes {reports[0][name + '_ms']!r} ms a call "
+            f"from blocks, {reports[0][name + '_whole_ms']!r} ms from whole "
+            f"tensors (between barriers), 1 process "
+            f"{ms_one[name]!r} ms; launches rank 0 "
+            f"{reports[0][name + '_launches']}, rank 1 "
+            f"{reports[1][name + '_launches']}")
+    log(30, f"config 3 (ens 40, grid {G3}, obs {O3}, GC r={RADIUS}, nb "
+        f"{opts['max_obs']}, halo {opts['halo_width']}, degree {DEGREE}) "
+        "across 2 processes (gloo, 4 virtual shards of the card each): "
+        "window and top-k, from blocks and from whole tensors, equal to "
+        "phase 26 bit for bit on both ranks; comm='rdma' raises; NCCL world "
+        f"of 1: process_info {rep_nccl['info']}, both analyses equal to "
+        f"phase 26; loader: 6 files at depth 3 into the window analysis in "
+        f"{s_ingest:.2f} s (batch 0 equal to phase 26, each batch to its "
+        f"file's sharding), {LOADER_PASSES} passes in a child, each in "
+        f"order and exact; native runtime built; DCP weights of 2 processes "
+        f"loaded whole equal the 1-process weights; children "
+        f"{s_children:.1f} s. " + "; ".join(notes) + f"; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+
+# -- 31. TerrSysMP at COSMO-DE width ------------------------------------------
+
+# DWD's COSMO-DE: 421 x 461 columns (ie_tot along rlon x je_tot along rlat)
+# at 0.025 deg (2.8 km; Baldauf et al. 2011, MWR 139:3887)
+COSMO_RLAT, COSMO_RLON = 461, 421
+COSMO_ENS = 40       # KENDA's ensemble (Schraff et al. 2016, QJRMS 142:1453)
+N_STATIONS = 500
+# the lowest 11 half-level heights (m) of a terrain-following grid over
+# flat ground, top down, and TERRA-ML's 8 soil layers (m)
+COSMO_VCOORD = np.array([1190.0, 1000.0, 825.0, 665.0, 520.0, 390.0, 275.0,
+                         180.0, 100.0, 40.0, 0.0])
+COSMO_SOIL = np.array([0.005, 0.025, 0.07, 0.16, 0.34, 0.7, 1.42, 2.86])
+CLM_LEVSOI = 15
+# KENDA's horizontal localization length scale, 100 km (Schraff et al.
+# 2016), as the GC radius c in degrees of the rotated grid (111.2 km a
+# degree); K4 takes the route the worst column's count needs
+R31 = 100.0 / 111.2
+CHUNK31 = 65536      # grid columns per K4 launch
+
+
+def cosmo_de_dataset(dev):
+    """A COSMO-shaped dataset at COSMO-DE width (T on 10 full levels, W on
+    11 half levels, T_2M, W_SO on 8 soil layers; one time, 40 members),
+    made from the seed on the card and handed to the host: a smooth-ish
+    mean field per level and a perturbation per member."""
+    from tpu_assim_torch.utils.dataset import Dataset, Variable
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    shape = (COSMO_RLAT, COSMO_RLON)
+
+    def field(levels, mean, spread):
+        base = mean + spread * torch.randn((1, 1, levels) + shape,
+                                           generator=gen, device=dev)
+        pert = torch.randn((1, COSMO_ENS, levels) + shape, generator=gen,
+                           device=dev)
+        return (base + 0.5 * spread * pert).cpu().numpy()
+
+    dims = ("time", "ensemble")
+    horiz = ("rlat", "rlon")
+    data_vars = {
+        "T": Variable(dims + ("level",) + horiz, field(10, 280.0, 2.0)),
+        "W": Variable(dims + ("level1",) + horiz, field(11, 0.0, 0.5)),
+        "T_2M": Variable(dims + ("height_2m",) + horiz,
+                         field(1, 285.0, 2.0)),
+        "W_SO": Variable(dims + ("soil1",) + horiz, field(8, 0.25, 0.05)),
+        "vcoord": Variable(("level1",), COSMO_VCOORD.copy()),
+    }
+    coords = {
+        "time": np.array([0.0]),
+        "level1": np.arange(11, dtype=np.float64),
+        "level": np.arange(10, dtype=np.float64),
+        "soil1": COSMO_SOIL.copy(),
+        "height_2m": np.array([2.0]),
+        "rlat": -5.0 + 0.025 * np.arange(COSMO_RLAT),
+        "rlon": -5.0 + 0.025 * np.arange(COSMO_RLON),
+    }
+    return Dataset(data_vars, coords)
+
+
+def rlatlon_distance(grid_coord, obs_coords):
+    """|d rlat| and |d rlon| (localization info columns 1 and 2)."""
+    return torch.abs(obs_coords[:, 1:3] - grid_coord[1:3][None, :]).T
+
+
+def clm_dataset(dev):
+    """A CLM-shaped dataset at the same width: H2OSOI on 15 soil levels,
+    H2OSNO without a level (one time, 40 members)."""
+    from tpu_assim_torch.utils.dataset import Dataset, Variable
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    shape = (1, COSMO_ENS, CLM_LEVSOI, COSMO_RLAT, COSMO_RLON)
+    soil = torch.rand(shape, generator=gen, device=dev).cpu().numpy()
+    snow = torch.rand(shape[:2] + shape[3:], generator=gen,
+                      device=dev).cpu().numpy()
+    dims = ("time", "ensemble")
+    return Dataset(
+        {"H2OSOI": Variable(dims + ("levsoi", "lat", "lon"), soil),
+         "H2OSNO": Variable(dims + ("lat", "lon"), snow)},
+        {"time": np.array([0.0]),
+         "levsoi": 0.01 * 1.6 ** np.arange(CLM_LEVSOI),
+         "lat": 45.0 + 0.025 * np.arange(COSMO_RLAT),
+         "lon": 5.0 + 0.025 * np.arange(COSMO_RLON)})
+
+
+def same_values(out_ds, ds, names, what):
+    for name in names:
+        check(out_ds[name].dims == ds[name].dims
+              and np.array_equal(out_ds[name].values, ds[name].values),
+              f"{what}: {name} differs")
+
+
+def terrsysmp_phase(dev, gpu):
+    """Phase 31: a COSMO-DE-wide dataset through preprocess_cosmo, the
+    class LETKF (cheb, top-k, K4) with the T2m station operator and a
+    horizontal GC taper on (rlat, rlon), and postprocess_cosmo; NaN exactly
+    at the vgrid padding, 4096 sampled columns against an f64 eigh
+    analysis on the CPU, K4 launched once a chunk; the identity round trips
+    of COSMO and of CLM; host times."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds = cosmo_de_dataset(dev)
+    s_make = time.perf_counter() - t0
+    names = ["T", "W", "T_2M", "W_SO"]
+    t0 = time.perf_counter()
+    state = preprocess_cosmo(ds, names, device=dev)
+    torch.cuda.synchronize()
+    s_pre = time.perf_counter() - t0
+    n_vgrid = len(state.vgrid)
+    g = state.n_grid
+    check(n_vgrid == 19 and g == COSMO_RLAT * COSMO_RLON * 19,
+          f"vgrid {n_vgrid}, grid {g}")
+    check(state.data.shape == (4, 1, COSMO_ENS, g)
+          and state.dtype == torch.float32, f"state {state.data.shape}")
+    # stations at seeded random cells; geographic lat/lon a shifted
+    # copy of the rotated grid, terrain from 0 to 1200 m
+    rs = np.random.RandomState(SEED + 31)
+    rlat, rlon = ds.coords["rlat"], ds.coords["rlon"]
+    lat2d, lon2d = np.meshgrid(50.0 + rlat, 10.0 + rlon, indexing="ij")
+    hsurf = 600.0 + 600.0 * np.sin(lat2d * 0.7) * np.cos(lon2d * 0.5)
+    cells = rs.choice(lat2d.size, N_STATIONS, replace=False)
+    op = CosmoT2mOperator(lat2d.flat[cells], lon2d.flat[cells],
+                          hsurf.flat[cells] + rs.normal(0, 30, N_STATIONS),
+                          lat2d, lon2d, hsurf, state.vgrid, state.var_names,
+                          lev_inds=(9, 8), t2m_level=0.0)
+    check(np.array_equal(np.sort(op.locs), np.sort(cells)),
+          "T2m: a station did not find its own cell")
+    hx = op.torch_operator()(state.data)                  # [1, ens, 500]
+    check(bool(torch.isfinite(hx).all()), "T2m equivalents not finite")
+    obs_vals = (hx.mean(1) + torch.as_tensor(
+        rs.normal(size=(1, N_STATIONS)), dtype=hx.dtype, device=dev))
+    obs_coords = state.grid_coords[torch.as_tensor(
+        op.locs * n_vgrid, device=dev)][:, :2]
+    obs = Observation(obs_vals, torch.ones(N_STATIONS, device=dev),
+                      obs_coords=obs_coords, times=state.times,
+                      operator=lambda o, s: op(o, s))
+    loc = GaspariCohn((R31, R31), rlatlon_distance)
+    # the exact window: the worst in-support count over the columns
+    info_h = state.grid_info()[::n_vgrid]
+    oinfo = obs.stacked_coords()
+    worst = max(int((loc.taper_weights(info_h[i:i + CHUNK31],
+                                       oinfo) > 0).sum(1).max())
+                for i in range(0, info_h.shape[0], CHUNK31))
+    nb31 = exact_nb(worst)
+    letkf = LETKF(localization=loc, inf_factor=INF, method="cheb",
+                  max_obs=nb31, selection="topk", chunksize=CHUNK31)
+    letkf.assimilate(state, obs)                          # warm-up
+    t0 = time.perf_counter()
+    analysis, counts = counted(letkf.assimilate, state, obs)
+    s_assim = time.perf_counter() - t0
+    n_chunks = -(-g // CHUNK31)
+    check(counts == {"nbh_cheb": n_chunks},
+          f"COSMO-DE cheb launches {counts}, {n_chunks} chunks")
+    check(analysis.vgrid is state.vgrid, "the analysis lost vgrid")
+    nan = torch.isnan(state.data)
+    check(torch.equal(torch.isnan(analysis.data), nan),
+          "analysis NaN where the background is not, or the reverse")
+    check(bool(torch.isfinite(analysis.data[~nan]).all()),
+          "analysis not finite off the padding")
+    # the f64 oracle: dense eigh on 4096 sampled columns, on the CPU
+    t0 = time.perf_counter()
+    cols = np.sort(rs.choice(g, 4096, replace=False))
+    cols_t = torch.as_tensor(cols, device=dev)
+    hx64 = op.torch_operator()(state.data.double())[0].cpu()
+    perts, innov = _normalized_obs_space(
+        hx64, obs_vals[0].double().cpu(),
+        torch.ones(N_STATIONS, dtype=torch.float64))
+    w_loc = loc.taper_weights(state.grid_info()[cols_t].double().cpu(),
+                              oinfo.double().cpu())
+    weights = letkf_weights_dense(perts, innov, w_loc, INF)
+    x = state.data[..., cols_t].double().cpu()
+    xm = x.mean(2, keepdim=True)
+    oracle = xm + torch.einsum("vtkg,gkm->vtmg", x - xm, weights)
+    s_oracle = time.perf_counter() - t0
+    err, rel = compare(analysis.data[..., cols_t].cpu(), oracle,
+                       "COSMO-DE cheb on 4096 columns vs f64 eigh")
+    t0 = time.perf_counter()
+    out_ds = postprocess_cosmo(analysis, ds)
+    s_post = time.perf_counter() - t0
+    for name in names:
+        check(np.isfinite(out_ds[name].values).all(),
+              f"postprocess: {name} not finite")
+    check(not np.array_equal(out_ds["T_2M"].values, ds["T_2M"].values),
+          "the analysis left T_2M as it was")
+    same_values(postprocess_cosmo(state, ds), ds, names + ["vcoord"],
+                "COSMO round trip")
+    t0 = time.perf_counter()
+    clm = clm_dataset(dev)
+    clm_state = preprocess_clm(clm, ["H2OSOI", "H2OSNO"], device=dev)
+    same_values(postprocess_clm(clm_state, clm), clm, ["H2OSOI", "H2OSNO"],
+                "CLM round trip")
+    s_clm = time.perf_counter() - t0
+    log(31, f"COSMO-DE width ({COSMO_RLAT} rlat x {COSMO_RLON} rlon x vgrid "
+        f"{n_vgrid} = {g} grid points, ens {COSMO_ENS}, state "
+        f"{state.data.numel() * 4 / 1e9:.2f} GB f32 on the card, "
+        f"{N_STATIONS} T2m stations, GC r={R31:.4f} deg on (rlat, rlon), "
+        f"worst in-support count {worst}, max_obs {nb31}, chunks of "
+        f"{CHUNK31}): LETKF(cheb, topk) launches {counts} (one a chunk); "
+        f"NaN exactly at the vgrid padding ({int(nan.sum())} entries); "
+        f"4096 sampled columns against f64 eigh (CPU, {s_oracle:.1f} s): "
+        f"max abs {err!r}, {rel!r} of max (budget {TOL}); COSMO and CLM "
+        f"({CLM_LEVSOI} levsoi) round trips the identity. Host times: "
+        f"dataset made {s_make:.2f} s, preprocess_cosmo {s_pre:.2f} s, "
+        f"assimilate {s_assim:.2f} s, postprocess_cosmo {s_post:.2f} s, "
+        f"CLM make + round trip {s_clm:.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+
+WORKERS = {"--phase30-worker": lambda r, port, out: phase30_worker(
+               int(r), port, out),
+           "--phase30-nccl": phase30_nccl,
+           "--loader-passes": loader_passes}
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in WORKERS:
+        # a child's own hard limit: it ends even if its parent is gone
+        signal.alarm(CHILD_LIMIT)
+        WORKERS[sys.argv[1]](*sys.argv[2:])
+        sys.exit(0)
     t0 = time.perf_counter()
     main()
     print(f"chip_smoke.py finished in {time.perf_counter() - t0:.1f} s",

@@ -15,6 +15,7 @@ port's ``testing/`` and ``utils/profiling``.
 """
 
 import importlib.util
+import json
 import os
 from pathlib import Path
 
@@ -362,3 +363,47 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert path.exists() and path.stat().st_size > 0
     assert "traced" in path.read_text()
     assert os.path.isdir(log_dir)
+
+
+# -- examples/torch_scaling.py --------------------------------------------------
+
+def test_scaling_runs_the_halo_analysis_on_virtual_shards(capsys,
+                                                           monkeypatch):
+    """The scaling harness on the CPU at a small grid: one row per shard
+    count, each with the virtual-shard caveat; at each count its analysis
+    equals the halo analysis of ``examples/scaling.py``'s arguments on
+    the port, and the JAX package's on its CPU mesh (through K4's plain
+    version and JAX's kernel in interpret mode: f32, 1e-5 of max)."""
+    from tpu_assim.ops.pallas import letkf as jpk
+    from tpu_assim.parallel import halo as jh
+    from tpu_assim.parallel.mesh import make_grid_mesh as j_mesh
+
+    mod = example("torch_scaling")
+    rows = mod.main(["--device", "cpu", "--grid-per-dev", "32", "--reps",
+                     "1", "--shards", "1,2,4"])
+    out = [json.loads(line) for line in capsys.readouterr().out.split("\n")
+           if line]
+    assert out == rows and [r["devices"] for r in rows] == [1, 2, 4]
+    assert all(r["grid"] == 128 and r["CAVEAT"] == mod.CAVEAT
+               and r["grid_points_per_s"] > 0 for r in rows)
+    assert rows[0]["efficiency_vs_1dev"] == 1.0
+    w = mod.build_workload(40, 128, 12)
+    mesh = mod.make_mesh(4, torch.device("cpu"))
+    args = mod.inputs(mesh, w, 128, 4, torch.device("cpu"))
+    opts = dict(max_obs=16, halo_width=jh.halo_width_for(20.0, 32.0),
+                inf_factor=1.1, use_pallas=True, cheb_degree=12)
+    port = mod.halo_letkf_analysis(
+        mesh, mod.GaspariCohn((20.0,), mod.coord1_distance), **opts)(*args)
+    orig = jpk.letkf_nbh_analysis_cheb
+
+    def interpret(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(jpk, "letkf_nbh_analysis_cheb", interpret)
+    ref = np.asarray(jh.halo_letkf_analysis(
+        j_mesh(4), GaspariCohn((20.0,), lambda gc, oi: jnp.abs(
+            oi[:, 1] - gc[1])[None, :]), **opts)(
+        *map(jnp.asarray, (a.numpy() for a in args))))
+    err = np.abs(port.numpy() - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max(), err

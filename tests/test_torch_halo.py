@@ -203,7 +203,14 @@ def stacked_workload(rng, n_grid=64, n_base=10, stack=8):
 def test_auto_degree_and_support_equal_jax(rng, consecutive):
     w = stacked_workload(rng)
     args = sharded_args(w, 4)
-    out = th._halo_auto_degree(*args[:6], 4, 96, 1.1, consecutive)
+    state, _, var, lidx, coords, valid = (th._numpy(a) for a in args[:6])
+    gl, p = state.shape[1] // 4, lidx.shape[0] // 4
+    znorm = np.concatenate([th._halo_znorm(
+        state[:, s * gl:(s + 1) * gl], var[s * p:(s + 1) * p],
+        lidx[s * p:(s + 1) * p], valid[s * p:(s + 1) * p], 1)
+        for s in range(4)])
+    out = th._degree_from_znorm(znorm, coords[:, 0], valid, state.shape[0],
+                                96, 1.1, consecutive)
     ref = jh._halo_auto_degree(*args[:6], 4, 96, 1.1, consecutive)
     assert out == ref and out > 16
     for radius in (2.0, 6.0):

@@ -220,3 +220,34 @@ def test_fused_rk4_gradcheck(rng, n_steps):
     x = torch.from_numpy(rng.normal(size=(2, 12)) + 2.0).requires_grad_()
     assert torch.autograd.gradcheck(
         lambda v: cf.fused_rk4_steps(Lorenz96(), v, 0.05, n_steps), (x,))
+
+
+# -- Lorenz '84 ------------------------------------------------------------------
+
+L84_TOL = 1e-12
+
+
+@pytest.mark.parametrize("params", [{}, dict(damp_factor=0.3, dis_factor=3.5,
+                                             symm_forcing=6.0,
+                                             asymm_forcing=1.5)])
+def test_lorenz84_matches_jax(rng, params):
+    from tpu_assim.models import Lorenz84 as JLorenz84
+    from tpu_assim_torch.models import Lorenz84
+
+    x = rng.normal(size=(5, 7, 3))
+    model, ref = Lorenz84(**params), JLorenz84(**params)
+    assert str(model) == str(ref)
+    close(model(torch.from_numpy(x)), ref(jnp.asarray(x)), L84_TOL)
+
+
+def test_lorenz84_rk4_trajectory_matches_jax(rng):
+    from tpu_assim.models import Lorenz84 as JLorenz84
+    from tpu_assim_torch.models import Lorenz84
+
+    x0 = rng.normal(size=(4, 3)) + np.array([1.0, 0.0, -0.5])
+    out = integrate_trajectory(RK4Integrator(Lorenz84(), dt=0.05),
+                               torch.from_numpy(x0), 40, save_every=4)
+    ref = j_traj(JRK4(JLorenz84(), dt=0.05), jnp.asarray(x0), 40,
+                 save_every=4)
+    assert out.shape == ref.shape
+    close(out, ref, L84_TOL)

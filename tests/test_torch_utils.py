@@ -265,3 +265,158 @@ def test_lapack_route_grad_finite_on_ties():
         tuple(jnp.asarray(t) for t in (du, ds, dv)))
     np.testing.assert_allclose(x1.grad.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
+
+
+# -- the state and observation checkpoint ------------------------------------------
+
+def jax_state(rng):
+    return JT.EnsembleState(rng.normal(size=(2, 3, 5, 8)),
+                            times=np.array([0.0, 10.0, 20.0]),
+                            grid_coords=rng.normal(size=(8, 2)),
+                            var_names=("T", "q"), ens_members=(0, 1, 2, 3, 4))
+
+
+def same_state(a, b):
+    for name in ("data", "times", "grid_coords"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                      np.asarray(getattr(b, name)))
+    assert tuple(a.var_names) == tuple(b.var_names)
+    assert tuple(a.ens_members) == tuple(b.ens_members)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_state_files_cross_packages(tmp_path, rng, writer):
+    """An HDF5 state written by either package loads in both, bit for
+    bit, the labels included."""
+    from tpu_assim_torch.utils import load_state, save_state
+
+    js = jax_state(rng)
+    path = str(tmp_path / "state.h5")
+    if writer == "jax":
+        jckpt.save_state(path, js)
+    else:
+        save_state(path, convert.from_tpu_assim(js, device="cpu"))
+    loaded = load_state(path, device="cpu")
+    assert loaded.valid and loaded.device.type == "cpu"
+    same_state(loaded, js)
+    same_state(jckpt.load_state(path), js)
+
+
+@pytest.mark.parametrize("correlated", [False, True])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_observation_files_cross_packages(tmp_path, rng, writer, correlated):
+    from tpu_assim_torch.utils import load_observation, save_observation
+
+    if correlated:
+        a = rng.normal(size=(6, 6))
+        jo = JT.Observation(rng.normal(size=(1, 6)), a @ a.T + 6 * np.eye(6),
+                            correlated=True)
+    else:
+        jo = JT.Observation(rng.normal(size=(2, 6)),
+                            rng.uniform(0.5, 1.5, size=6),
+                            obs_coords=rng.normal(size=(6, 2)),
+                            times=np.array([0.0, 10.0]))
+    path = str(tmp_path / "obs.h5")
+    if writer == "jax":
+        jckpt.save_observation(path, jo)
+    else:
+        save_observation(path, TT.Observation(
+            np.array(jo.observations), np.array(jo.covariance),
+            obs_coords=np.array(jo.obs_coords),
+            times=np.array(jo.times), correlated=correlated,
+            device="cpu"))
+    for loaded in (load_observation(path, device="cpu"),
+                   jckpt.load_observation(path)):
+        assert loaded.valid and loaded.correlated == correlated
+        for name in ("observations", "covariance", "obs_coords", "times"):
+            np.testing.assert_array_equal(np.asarray(getattr(loaded, name)),
+                                          np.asarray(getattr(jo, name)))
+
+
+# -- the labeled dataset and the coordinate helpers -----------------------------------
+
+def datasets(rng):
+    """tests/test_dataset.py's dataset, in both packages."""
+    from tpu_assim.utils import dataset as jds
+    from tpu_assim_torch.utils import dataset as tds
+
+    t = rng.normal(size=(2, 3, 4))
+    p = rng.normal(size=(2, 4))
+    coords = {"time": np.array([0.0, 1.0]),
+              "level": np.array([10.0, 20.0, 30.0]), "x": np.arange(4.0)}
+    return tuple(mod.Dataset({"T": mod.Variable(("time", "level", "x"),
+                                                t.copy()),
+                              "P": mod.Variable(("time", "x"), p.copy())},
+                             coords={k: v.copy() for k, v in coords.items()})
+                 for mod in (jds, tds))
+
+
+def same_ds(a, b):
+    assert a.dims == b.dims and sorted(a.coords) == sorted(b.coords)
+    assert sorted(a.data_vars) == sorted(b.data_vars)
+    for name in a.data_vars:
+        assert a[name].dims == b[name].dims
+        np.testing.assert_array_equal(a[name].values, b[name].values)
+    for name in a.coords:
+        np.testing.assert_array_equal(a.coords[name], b.coords[name])
+
+
+@pytest.mark.parametrize("op", [
+    lambda d: d.select(["P", "missing"]),
+    lambda d: d.reindex("level", np.array([20.0, 40.0, 10.0, 30.0])),
+    lambda d: d.rename_dims({"level": "lev"}),
+    lambda d: d.rename_dims({"level": "lev"}, drop_old_coords=False),
+    lambda d: d.copy(deep=True),
+])
+def test_dataset_equals_jax(rng, op):
+    jd, td = datasets(rng)
+    same_ds(op(td), op(jd))
+
+
+def test_variable_equals_jax(rng):
+    from tpu_assim.utils.dataset import Variable as JV
+    from tpu_assim_torch.utils.dataset import Variable as TV
+
+    v = rng.normal(size=(2, 3, 4))
+    for fn in (lambda var: var.transpose(("c", "a", "b")),
+               lambda var: var.expand_dims("ens", axis=0, size=4),
+               lambda var: var.expand_dims("e", axis=-1),
+               lambda var: var.rename_dim("b", "z")):
+        a, b = fn(TV(("a", "b", "c"), v)), fn(JV(("a", "b", "c"), v))
+        assert a.dims == b.dims
+        np.testing.assert_array_equal(a.values, b.values)
+    with pytest.raises(ValueError):
+        TV(("a",), np.zeros((2, 2)))
+    jd, td = datasets(rng)
+    with pytest.raises(ValueError):
+        td.rename_dims({"level": "x"})
+    with pytest.raises(ValueError):
+        type(td)({"T": TV(("x",), np.zeros(3))}, coords={"x": np.zeros(5)})
+
+
+@pytest.mark.parametrize("index", [
+    lambda pd: np.array(["1970-01-01T00:00:10", "1970-01-01T01:00:00"],
+                        dtype="datetime64[s]"),
+    lambda pd: [1.0, 2.5],
+    lambda pd: np.array([3, 1, 2]),
+    lambda pd: np.arange(6.0).reshape(3, 2),
+    lambda pd: pd.MultiIndex.from_product([[0.0, 1.0], [10.0, 20.0, 30.0]]),
+    lambda pd: pd.Index(np.array(["1970-01-01T00:00:05"],
+                                 dtype="datetime64[s]")),
+    lambda pd: pd.Index([4.0, 5.0]),
+])
+def test_coords_equal_jax(index):
+    import pandas as pd
+
+    from tpu_assim.utils import coords as jc
+    from tpu_assim_torch.utils import coords as tc
+
+    idx = index(pd)
+    np.testing.assert_array_equal(tc.index_to_array(idx),
+                                  jc.index_to_array(idx))
+    if not isinstance(idx, pd.Index) and np.ndim(idx) == 1:
+        np.testing.assert_array_equal(tc.times_to_seconds(idx),
+                                      jc.times_to_seconds(idx))
+    if isinstance(idx, pd.MultiIndex):
+        np.testing.assert_array_equal(tc.multiindex_to_array(idx),
+                                      jc.multiindex_to_array(idx))

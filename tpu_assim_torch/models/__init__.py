@@ -5,10 +5,12 @@ from tpu_assim_torch.models.integration import (
     RK4Integrator,
     integrate_trajectory,
 )
+from tpu_assim_torch.models.lorenz84 import Lorenz84
 from tpu_assim_torch.models.lorenz96 import Lorenz96
 
 __all__ = [
     "BaseIntegrator",
+    "Lorenz84",
     "Lorenz96",
     "RK4Integrator",
     "integrate_trajectory",

@@ -1,7 +1,8 @@
 """Sharded analyses over device meshes (PyTorch port of
 :mod:`tpu_assim.parallel`): the grid mesh, the grid-sharded LETKF and, in
 :mod:`tpu_assim_torch.parallel.halo`, the obs-sharded halo LETKF with its
-exchange kernel K8 (:mod:`tpu_assim_torch.parallel.cuda_halo`)."""
+exchange kernel K8 (:mod:`tpu_assim_torch.parallel.cuda_halo`); meshes
+that span processes in :mod:`tpu_assim_torch.parallel.multihost`."""
 
 from tpu_assim_torch.parallel.mesh import (
     make_grid_mesh,

@@ -11,12 +11,21 @@ halo (:func:`_halo_offsets`), concatenated along the last dimension.
 ``torch.cat``; :func:`ring_halo_rdma` runs it for CPU shards and launches
 ``csrc/halo_ring.cu`` for CUDA shards: one launch per device for all of
 its shards, reading the other devices' blocks through peer pointers.
+
+On a ring that spans processes (``owners``), the plain exchange takes
+another process's blocks by ``torch.distributed`` transfers
+(:func:`tpu_assim_torch.parallel.multihost.exchange_blocks`); K8 reads
+through peer pointers, which reach only the memory of its own process, so
+:func:`tpu_assim_torch.parallel.halo.halo_letkf_analysis` refuses
+``comm="rdma"`` there.
 """
 
 import ctypes
 import functools
 
 import torch
+
+from tpu_assim_torch.parallel.multihost import exchange_blocks
 
 __all__ = ["LAUNCHES", "ring_halo_plain", "ring_halo_rdma"]
 
@@ -43,27 +52,33 @@ def _check_blocks(blocks, n_shards: int) -> None:
     if len(blocks) != n_shards:
         raise ValueError(f"{len(blocks)} blocks for a ring of {n_shards} "
                          "shards")
-    first = blocks[0]
+    held = [b for b in blocks if b is not None]
+    first = held[0]
     if first.ndim != 2 or any(b.shape != first.shape or b.dtype != first.dtype
-                              for b in blocks):
+                              for b in held):
         raise ValueError(
             "the halo exchange takes one [rows, cols] block per shard, all "
             "of one shape and dtype; got "
-            + ", ".join(f"{tuple(b.shape)} {b.dtype}" for b in blocks))
+            + ", ".join(f"{tuple(b.shape)} {b.dtype}" for b in held))
 
 
-def ring_halo_plain(blocks, n_shards: int, halo_width: int):
+def ring_halo_plain(blocks, n_shards: int, halo_width: int, owners=None):
     """The halo exchange by copies: shard ``s`` gets
     ``cat([blocks[s]] + [blocks[(s - off) % n] for off in offsets], -1)``
     on its own device, the layout of the JAX package's ``_ring_halo``. With
-    no offsets each shard keeps its block."""
+    no offsets each shard keeps its block.
+
+    ``owners``: the rank of each shard's process on a ring that spans
+    processes (``blocks`` None where another process holds a shard, and so
+    is the result); None: one process holds every shard."""
     _check_blocks(blocks, n_shards)
     offsets = _halo_offsets(n_shards, halo_width)
     if not offsets:
         return list(blocks)
-    return [torch.cat([blocks[s]] + [blocks[(s - off) % n_shards].to(
-        blocks[s].device) for off in offsets], dim=-1)
-        for s in range(n_shards)]
+    got = exchange_blocks(blocks, [[(s - off) % n_shards for off in offsets]
+                                   for s in range(n_shards)], owners)
+    return [None if parts is None else torch.cat([blocks[s]] + parts, dim=-1)
+            for s, parts in enumerate(got)]
 
 
 @functools.lru_cache(maxsize=None)

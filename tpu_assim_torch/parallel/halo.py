@@ -26,6 +26,17 @@ every shard, (B) the exchange of all shards at once, (C) step 4 on every
 shard. It takes global tensors and returns the global analysis on the
 device of the input state.
 
+On a mesh that spans processes (:mod:`tpu_assim_torch.parallel.multihost`)
+each process runs (A) and (C) for its own positions only, and (B) takes
+the other processes' blocks by ``torch.distributed`` transfers. The
+analysis then takes either the whole tensors, which every process holds,
+and returns the whole analysis on every process, or
+:class:`~tpu_assim_torch.parallel.multihost.GlobalTensor` inputs (from
+``host_local_to_global``), and returns this process's blocks as one. The
+host-side checks (the strict window, the auto degree) read every shard's
+observations: each process computes its own part, the parts meet in a MAX
+``all_reduce``, and every process raises or goes on together.
+
 Exactness: a halo of width ``h`` is exact iff every observation with a
 nonzero taper weight for a local column lies within ``h`` shards, i.e.
 ``h >= ceil(cutoff / shard_span)`` (:func:`halo_width_for`). Ring
@@ -56,7 +67,14 @@ from tpu_assim_torch.parallel.cuda_halo import (
     ring_halo_plain,
     ring_halo_rdma,
 )
-from tpu_assim_torch.parallel.mesh import Mesh, _axis_devices
+from tpu_assim_torch.parallel.mesh import Mesh, _axis_devices, _axis_owners
+from tpu_assim_torch.parallel.multihost import (
+    GlobalTensor,
+    all_blocks,
+    exchange_blocks,
+    max_across_processes,
+    process_index,
+)
 
 __all__ = [
     "shard_observations",
@@ -71,7 +89,10 @@ logger = logging.getLogger(__name__)
 # Coordinate sentinel of wrapped and pad candidates: outside every support.
 _BIG = float(np.finfo(np.float32).max)
 
-_EXCHANGES = {"ppermute": ring_halo_plain, "rdma": ring_halo_rdma}
+RDMA_ACROSS_PROCESSES = (
+    "comm='rdma' (kernel K8) reads the other shards' blocks through peer "
+    "pointers, which reach only the devices of its own process; on a mesh "
+    "that spans processes exchange with comm='ppermute'")
 
 
 def _numpy(a) -> np.ndarray:
@@ -219,7 +240,7 @@ def shard_observations(
 
 
 def _ring_halo_sorted(blocks, coord_row: int, n_shards: int,
-                      halo_width: int):
+                      halo_width: int, owners=None):
     """The halo concat of each shard in ascending ring-offset order ``[-h
     .. -1, 0, 1 .. h]``, for the windowed local solve, which needs the
     coordinate row (``coord_row``, the last) sorted across the concat.
@@ -229,11 +250,18 @@ def _ring_halo_sorted(blocks, coord_row: int, n_shards: int,
     sorted and puts it outside every support. Offsets with ``|off| >= n``
     wrap for every shard and are dropped. Aliased ``+/-off`` hops on small
     rings come in on both sides, each masked by its own wrap test, so on a
-    non-periodic domain every real observation is seen once.
+    non-periodic domain every real observation is seen once. ``owners`` as
+    in :func:`~tpu_assim_torch.parallel.cuda_halo.ring_halo_plain`.
     """
+    offs = [off for off in range(-halo_width, halo_width + 1)
+            if off and abs(off) < n_shards]
+    got = exchange_blocks(blocks, [[(s + off) % n_shards for off in offs]
+                                   for s in range(n_shards)], owners)
     out = []
-    for s in range(n_shards):
-        device = blocks[s].device
+    for s, received in enumerate(got):
+        if received is None:
+            out.append(None)
+            continue
         parts = []
         for off in range(-halo_width, halo_width + 1):
             if off == 0:
@@ -241,7 +269,7 @@ def _ring_halo_sorted(blocks, coord_row: int, n_shards: int,
                 continue
             if abs(off) >= n_shards:
                 continue
-            blk = blocks[(s + off) % n_shards].to(device)
+            blk = received[offs.index(off)]
             if not 0 <= s + off < n_shards:
                 fill = torch.full_like(blk[coord_row:coord_row + 1],
                                        _BIG if off > 0 else -_BIG)
@@ -251,19 +279,16 @@ def _ring_halo_sorted(blocks, coord_row: int, n_shards: int,
     return out
 
 
-def _halo_auto_degree(state_data, obs_vals, obs_var, obs_lidx, obs_coords,
-                      obs_valid, n_shards, max_obs, inf_factor,
-                      consecutive: bool) -> int:
-    """Chebyshev degree for the halo entry points, measured on the host
-    (numpy, f64): the solve operator of a column is ``X = I + Zh Zh^T /
-    reg``, whose spectrum is bounded by ``1 + tr(S)/reg`` with ``tr(S) =
-    sum_o w_o ||z_o||^2`` at most the largest sum of ``max_obs`` whitened
-    perturbation norms: over consecutive coordinates (``consecutive``, the
-    sorted window selection), else over any ``max_obs`` (any taper with
-    ``w <= 1``)."""
+def _halo_znorm(state_data, obs_var, obs_lidx, obs_valid,
+                n_shards) -> np.ndarray:
+    """Per obs slot the whitened squared perturbation norm ``||z_o||^2``
+    (zero on pad slots), measured on the host (numpy, f64), over the
+    shards of ``state_data`` [k, g] and the sharded obs arrays. Each slot
+    needs only its own shard, so a shard's slots come out the same alone
+    or among the others."""
     state = _numpy(state_data).astype(np.float64)
     k, g = state.shape
-    p = _numpy(obs_vals).shape[0] // n_shards
+    p = _numpy(obs_lidx).shape[0] // n_shards
     shard_size = g // n_shards
     lidx = _numpy(obs_lidx)
     gidx = (np.arange(n_shards * p) // p) * shard_size + lidx
@@ -282,13 +307,25 @@ def _halo_auto_degree(state_data, obs_vals, obs_var, obs_lidx, obs_coords,
         perts = pb.reshape(k, n_shards * p)
     else:
         perts = perts / np.sqrt(var)[None, :]
-    znorm = np.sum(perts**2, axis=0) * valid
+    return np.sum(perts**2, axis=0) * valid
+
+
+def _degree_from_znorm(znorm, obs_x, obs_valid, k, max_obs, inf_factor,
+                       consecutive: bool) -> int:
+    """Chebyshev degree for the halo entry points, measured on the host
+    (numpy, f64) from the slots' ``||z_o||^2`` (:func:`_halo_znorm`), first
+    coordinates and validity: the solve operator of a column is ``X = I +
+    Zh Zh^T / reg``, whose spectrum is bounded by ``1 + tr(S)/reg`` with
+    ``tr(S) = sum_o w_o ||z_o||^2`` at most the largest sum of ``max_obs``
+    whitened perturbation norms: over consecutive coordinates
+    (``consecutive``, the sorted window selection), else over any
+    ``max_obs`` (any taper with ``w <= 1``)."""
+    valid = np.asarray(obs_valid) > 0
     reg = (k - 1) / float(inf_factor)
     width = min(int(max_obs), int(valid.sum())) or 1
     if consecutive:
-        ox = _numpy(obs_coords)[:, 0]
-        order = np.argsort(ox[valid], kind="stable")
-        zs = znorm[valid][order]
+        order = np.argsort(np.asarray(obs_x)[valid], kind="stable")
+        zs = np.asarray(znorm)[valid][order]
         cs = np.concatenate([[0.0], np.cumsum(zs)])
         tr_max = float((cs[width:] - cs[:-width]).max()) if len(zs) else 0.0
     else:
@@ -411,6 +448,48 @@ def _check_local_method(local_method: str) -> None:
             f"local_method must be 'topk' or 'window', got {local_method!r}")
 
 
+def _block(x, dims, axes, key, index, device):
+    """Shard ``key``'s block of an input: a GlobalTensor's own block (its
+    split must be ``dims`` over ``axes``), or ``x[index]`` of a whole
+    tensor on ``device``, contiguous as a GlobalTensor's blocks are (so
+    that both reduce in one order)."""
+    if isinstance(x, GlobalTensor):
+        if not x.matches(dims, axes):
+            raise ValueError(
+                f"an input split {x.dims} over {x.axes} where the analysis "
+                f"splits {dims} over {axes}")
+        return x.blocks[key]
+    return x[index].to(device).contiguous()
+
+
+def _assembled(parts, n_shards: int, p: int, width: int = 0):
+    """The whole [n_shards * p(, width)] host array of per-shard parts
+    (shard index -> numpy array), each process holding some: every
+    process's parts meet in a MAX ``all_reduce`` (a collective)."""
+    shape = (n_shards * p,) + ((width,) if width else ())
+    out = np.full(shape, -np.inf)
+    for s, part in parts.items():
+        out[s * p:(s + 1) * p] = part
+    return max_across_processes(out)
+
+
+def _whole_or_global(outs, state_data, owners, key_of):
+    """The analysis of the shards this process computed (``outs``, None
+    for the others) as its input came: a GlobalTensor of its blocks, or
+    every shard's block on the state's device (from every process)."""
+    if isinstance(state_data, GlobalTensor):
+        return GlobalTensor(state_data.mesh, state_data.shape,
+                            state_data.dims, state_data.axes,
+                            {key_of(s): o for s, o in enumerate(outs)
+                             if o is not None})
+    return all_blocks(outs, owners, state_data.device)
+
+
+def _mine(owners, n: int):
+    rank = process_index()
+    return [owners is None or owners[s] == rank for s in range(n)]
+
+
 def halo_letkf_analysis(
     mesh: Mesh,
     localization,
@@ -439,7 +518,7 @@ def halo_letkf_analysis(
 
     ``cheb_degree``: Chebyshev degree of the kernel solves (``use_pallas``,
     ``local_method="window"``); ``None`` measures the spectral bound of each
-    call's inputs on the host (:func:`_halo_auto_degree`).
+    call's inputs on the host (:func:`_degree_from_znorm`).
     ``max_obs_strict`` (default True) makes windowed calls raise when a
     column's in-support candidate count (valid obs and pad slots) exceeds
     ``max_obs``.
@@ -474,10 +553,13 @@ def halo_letkf_analysis(
         raise ValueError(
             f"axis_name {axis_name!r} not in mesh axes {mesh.axis_names}")
     devices = _axis_devices(mesh, axis_name)
+    owners = _axis_owners(mesh, axis_name)
     n_shards = int(mesh.shape[axis_name])
     _check_local_method(local_method)
-    if comm not in _EXCHANGES:
+    if comm not in ("ppermute", "rdma"):
         raise ValueError(f"comm must be 'ppermute' or 'rdma', got {comm!r}")
+    if comm == "rdma" and owners is not None and local_method == "topk":
+        raise NotImplementedError(RDMA_ACROSS_PROCESSES)
     if local_method == "window":
         radii, taper, eps = _window_params(localization, 1)
         if radii.size != 1:
@@ -485,6 +567,8 @@ def halo_letkf_analysis(
                              f"localization radius; got {radii}")
         radius = float(radii[0])
     needs_degree = use_pallas or local_method == "window"
+    mine = _mine(owners, n_shards)
+    split = ((axis_name,),)
 
     def solve_window(cand, state_loc, gcoords, degree):
         k = state_loc.shape[0]
@@ -497,16 +581,23 @@ def halo_letkf_analysis(
             taper=taper, epsilon=eps)
         return out.to(state_loc.dtype)
 
-    def analysis_fn(state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
-                    obs_valid, grid_coords):
-        obs = [torch.as_tensor(a) for a in (obs_vals, obs_var, obs_local_idx,
-                                            obs_coords, obs_valid)]
-        grid_coords = torch.as_tensor(grid_coords)
-        if local_method == "window" and max_obs_strict:
+    def host_checks(k, shards, p):
+        """The strict-window precheck and the auto degree from this
+        process's shards, their parts met with every other process's (a
+        collective): every rank raises, or takes one degree, together."""
+        strict = local_method == "window" and max_obs_strict
+        auto = cheb_degree is None and needs_degree
+        if not (strict or auto):
+            return cheb_degree
+        parts = [(s, sh) for s, sh in enumerate(shards) if sh]
+        obs_x = _assembled({s: _numpy(sh[4][:, 0]) for s, sh in parts},
+                           n_shards, p)
+        valid = _assembled({s: _numpy(sh[5]) for s, sh in parts}, n_shards, p)
+        if strict:
             # the fixed-size window is exact iff no column sees more
             # in-support candidates (real obs and pad slots) than max_obs
-            worst = _halo_max_in_support(obs[3], obs[4], n_shards, radius,
-                                         taper, eps, halo_width)
+            worst = _halo_max_in_support(obs_x[:, None], valid, n_shards,
+                                         radius, taper, eps, halo_width)
             if worst > max_obs:
                 raise ValueError(
                     f"a grid column may see {worst} in-support candidates "
@@ -514,11 +605,20 @@ def halo_letkf_analysis(
                     f"window selection would truncate. Raise max_obs to >= "
                     f"{worst} (pad slots count — rebalance shard obs counts "
                     "to shrink them) or pass max_obs_strict=False.")
-        degree = cheb_degree
-        if degree is None and needs_degree:
-            degree = _halo_auto_degree(
-                state_data, *obs, n_shards, max_obs, inf_factor,
-                consecutive=local_method == "window")
+        if not auto:
+            return cheb_degree
+        znorm = _assembled({s: _halo_znorm(sh[0], sh[2], sh[3], sh[5], 1)
+                            for s, sh in parts}, n_shards, p)
+        return _degree_from_znorm(znorm, obs_x, valid, k, max_obs,
+                                  inf_factor, local_method == "window")
+
+    def analysis_fn(state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
+                    obs_valid, grid_coords):
+        obs = [a if isinstance(a, GlobalTensor) else torch.as_tensor(a)
+               for a in (obs_vals, obs_var, obs_local_idx, obs_coords,
+                         obs_valid)]
+        if not isinstance(grid_coords, GlobalTensor):
+            grid_coords = torch.as_tensor(grid_coords)
         k, g = state_data.shape
         if g % n_shards or obs[0].shape[0] % n_shards:
             raise ValueError(
@@ -527,14 +627,24 @@ def halo_letkf_analysis(
         gl, p = g // n_shards, obs[0].shape[0] // n_shards
         shards = []
         for s, device in enumerate(devices):
+            if not mine[s]:
+                shards.append(None)
+                continue
             cols = slice(s * gl, (s + 1) * gl)
             slots = slice(s * p, (s + 1) * p)
-            shards.append((state_data[:, cols].to(device),
-                           *(a[slots].to(device) for a in obs),
-                           grid_coords[cols].to(device)))
+            shards.append((
+                _block(state_data, (1,), split, (s,), (slice(None), cols),
+                       device),
+                *(_block(a, (0,), split, (s,), slots, device) for a in obs),
+                _block(grid_coords, (0,), split, (s,), cols, device)))
+        degree = host_checks(k, shards, p)
         # (A) local obs space and pack
         packed = []
-        for state_loc, vals, var, lidx, ocoords, valid, gcoords in shards:
+        for shard in shards:
+            if shard is None:
+                packed.append(None)
+                continue
+            state_loc, vals, var, lidx, ocoords, valid, gcoords = shard
             perts, innov = _local_obs_space(state_loc, vals, var, lidx, valid)
             if local_method == "window":
                 # pad slots at the shard's largest valid coordinate (its
@@ -551,19 +661,25 @@ def halo_letkf_analysis(
                                      ocoords.T]))
         # (B) the exchange of every shard at once
         if local_method == "window":
-            cands = _ring_halo_sorted(packed, k + 1, n_shards, halo_width)
+            cands = _ring_halo_sorted(packed, k + 1, n_shards, halo_width,
+                                      owners)
+        elif comm == "rdma":
+            cands = ring_halo_rdma(packed, n_shards, halo_width)
         else:
-            cands = _EXCHANGES[comm](packed, n_shards, halo_width)
+            cands = ring_halo_plain(packed, n_shards, halo_width, owners)
         # (C) solve and apply
         outs = []
-        for (state_loc, *_, gcoords), cand in zip(shards, cands):
-            if local_method == "window":
-                outs.append(solve_window(cand, state_loc, gcoords, degree))
+        for shard, cand in zip(shards, cands):
+            if shard is None:
+                outs.append(None)
+            elif local_method == "window":
+                outs.append(solve_window(cand, shard[0], shard[-1], degree))
             else:
                 outs.append(_topk_solve(
-                    cand, gcoords, state_loc, localization, max_obs,
+                    cand, shard[-1], shard[0], localization, max_obs,
                     inf_factor, method, newton_iters, use_pallas, degree))
-        return torch.cat([o.to(state_data.device) for o in outs], dim=1)
+        out = _whole_or_global(outs, state_data, owners, lambda s: (s,))
+        return out if isinstance(out, GlobalTensor) else torch.cat(out, 1)
 
     return analysis_fn
 
@@ -656,36 +772,48 @@ def _tile(t: int, axis: int, off: int, m_rows: int, m_cols: int) -> int:
     return i * m_cols + (j + off) % m_cols
 
 
-def _ring_halo_2d(blocks, mesh_rows, mesh_cols, halo_r, halo_c):
+def _ring_halo_2d(blocks, mesh_rows, mesh_cols, halo_r, halo_c,
+                  owners=None):
     """2-D halo: each tile's packed block with those of its (2 halo_r + 1) x
     (2 halo_c + 1) tile neighbourhood: the row-axis exchange first, then
     the column-axis exchange of the row-concatenated blocks (corners by
-    relay). blocks [rows, p] per tile -> [rows, (2hr+1)(2hc+1) p]."""
+    relay). blocks [rows, p] per tile -> [rows, (2hr+1)(2hc+1) p]; None for
+    the tiles of another process (``owners``)."""
     n = mesh_rows * mesh_cols
     stages = ((0, mesh_rows, halo_r), (1, mesh_cols, halo_c))
     for axis, extent, width in stages:
         offsets = _halo_offsets(extent, width)
-        blocks = [torch.cat([blocks[t]] + [
-            blocks[_tile(t, axis, -off, mesh_rows, mesh_cols)].to(
-                blocks[t].device) for off in offsets], dim=-1)
-            for t in range(n)]
+        got = exchange_blocks(blocks, [
+            [_tile(t, axis, -off, mesh_rows, mesh_cols) for off in offsets]
+            for t in range(n)], owners)
+        blocks = [None if parts is None else torch.cat([blocks[t]] + parts,
+                                                       dim=-1)
+                  for t, parts in enumerate(got)]
     return blocks
 
 
 def _ring_halo_2d_masked(blocks, coord_start, mesh_rows, mesh_cols, halo_r,
-                         halo_c):
+                         halo_c, owners=None):
     """2-D halo exchange for the windowed local solve: every block whose
     source tile wrapped around the torus on either axis gets its coordinate
     rows (``[coord_start:]``) set to ``+float32.max``, which puts it outside
     every y-band of the 2-D window kernel (it sorts internally, so the
     order does not matter). Offsets with ``|off| >= extent`` are dropped;
     aliased ``+/-off`` hops come in on both sides, each masked by its own
-    wrap test."""
+    wrap test. ``owners`` as in :func:`_ring_halo_2d`."""
     n = mesh_rows * mesh_cols
     for axis, extent, width in ((0, mesh_rows, halo_r),
                                 (1, mesh_cols, halo_c)):
+        offs = [off for off in range(-width, width + 1)
+                if off and abs(off) < extent]
+        got = exchange_blocks(blocks, [
+            [_tile(t, axis, off, mesh_rows, mesh_cols) for off in offs]
+            for t in range(n)], owners)
         out = []
-        for t in range(n):
+        for t, received in enumerate(got):
+            if received is None:
+                out.append(None)
+                continue
             pos = divmod(t, mesh_cols)[axis]
             parts = []
             for off in range(-width, width + 1):
@@ -694,8 +822,7 @@ def _ring_halo_2d_masked(blocks, coord_start, mesh_rows, mesh_cols, halo_r,
                     continue
                 if abs(off) >= extent:
                     continue
-                blk = blocks[_tile(t, axis, off, mesh_rows, mesh_cols)].to(
-                    blocks[t].device)
+                blk = received[offs.index(off)]
                 if not 0 <= pos + off < extent:
                     blk = torch.cat([blk[:coord_start], torch.full_like(
                         blk[coord_start:], _BIG)])
@@ -746,6 +873,7 @@ def halo_letkf_analysis_2d(
     Exact when the taper support fits inside the halo.
     """
     devices = _axis_devices(mesh, row_axis, col_axis)
+    owners = _axis_owners(mesh, row_axis, col_axis)
     m_rows, m_cols = int(mesh.shape[row_axis]), int(mesh.shape[col_axis])
     n_tiles = m_rows * m_cols
     halo_r, halo_c = halo
@@ -761,35 +889,25 @@ def halo_letkf_analysis_2d(
         rx = float(radii[0])
         ry = float(radii[1] if radii.size > 1 else radii[-1])
     needs_degree = use_pallas or local_method == "window"
+    mine = _mine(owners, n_tiles)
+    tiles2 = ((row_axis,), (col_axis,))
+    flat = ((row_axis, col_axis),)
 
-    def check_support(obs_coords, obs_valid, grid_coords):
-        """Exact in-support precheck per tile: each tile's kernel sees the
-        valid obs of its tile neighbourhood (wrapped sources are masked out
-        on non-periodic domains, pad slots carry sentinel coordinates),
-        over its local flat grid as the kernel tiles it."""
-        coords = _numpy(obs_coords)
-        valid = _numpy(obs_valid) > 0
-        grid = _numpy(grid_coords)
-        tr, tc = grid.shape[0] // m_rows, grid.shape[1] // m_cols
-        p = coords.shape[0] // n_tiles
-        worst = 0
-        for i in range(m_rows):
-            for j in range(m_cols):
-                cand = []
-                for si in range(max(i - halo_r, 0),
-                                min(i + halo_r + 1, m_rows)):
-                    for sj in range(max(j - halo_c, 0),
-                                    min(j + halo_c + 1, m_cols)):
-                        sl = slice((si * m_cols + sj) * p,
-                                   (si * m_cols + sj + 1) * p)
-                        cand.append(coords[sl][valid[sl], :2])
-                gloc = grid[i * tr:(i + 1) * tr, j * tc:(j + 1) * tc]
-                cxy = np.concatenate(cand, axis=0)
-                if cxy.shape[0]:
-                    worst = max(worst, max_in_support_2d(
-                        cxy, gloc.reshape(tr * tc, -1)[:, :2], rx, ry,
-                        taper=taper, epsilon=eps))
-        return worst
+    def tile_worst(coords, valid, gloc, i, j, p):
+        """Tile (i, j)'s in-support maximum over the valid obs of its tile
+        neighbourhood (wrapped sources are masked out on non-periodic
+        domains, pad slots carry sentinel coordinates), over its local flat
+        grid as the kernel tiles it."""
+        cand = []
+        for si in range(max(i - halo_r, 0), min(i + halo_r + 1, m_rows)):
+            for sj in range(max(j - halo_c, 0), min(j + halo_c + 1, m_cols)):
+                sl = slice((si * m_cols + sj) * p, (si * m_cols + sj + 1) * p)
+                cand.append(coords[sl][valid[sl] > 0, :2])
+        cxy = np.concatenate(cand, axis=0)
+        if not cxy.shape[0]:
+            return 0
+        return max_in_support_2d(cxy, gloc.reshape(-1, gloc.shape[-1])[:, :2],
+                                 rx, ry, taper=taper, epsilon=eps)
 
     def solve_window(cand, state_flat, gcoords, degree):
         k = state_flat.shape[0]
@@ -807,46 +925,73 @@ def halo_letkf_analysis_2d(
             degree=degree, taper=taper, epsilon=eps,
             extra_radii=extra).to(state_flat.dtype)
 
-    def analysis_fn(state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
-                    obs_valid, grid_coords):
-        obs = [torch.as_tensor(a) for a in (obs_vals, obs_var, obs_local_idx,
-                                            obs_coords, obs_valid)]
-        grid_coords = torch.as_tensor(grid_coords)
-        if local_method == "window" and max_obs_strict:
-            worst = check_support(obs[3], obs[4], grid_coords)
+    def host_checks(k, coord_width, shards, p):
+        """The strict-window precheck and the auto degree from this
+        process's tiles, met with every other process's (a collective), as
+        :func:`halo_letkf_analysis` makes them."""
+        strict = local_method == "window" and max_obs_strict
+        auto = cheb_degree is None and needs_degree
+        if not (strict or auto):
+            return cheb_degree
+        parts = [(t, sh) for t, sh in enumerate(shards) if sh]
+        valid = _assembled({t: _numpy(sh[5]) for t, sh in parts}, n_tiles, p)
+        if strict:
+            coords = _assembled({t: _numpy(sh[4]) for t, sh in parts},
+                                n_tiles, p, coord_width)
+            worst = max([tile_worst(coords, valid, _numpy(sh[6]),
+                                    *divmod(t, m_cols), p)
+                         for t, sh in parts] + [0])
+            worst = int(max_across_processes(np.array([worst]))[0])
             if worst > max_obs:
                 raise ValueError(
                     f"a grid column may see {worst} in-support band obs but "
                     f"max_obs={max_obs}: the 2-D window selection would "
                     f"truncate. Raise max_obs to >= {worst} or pass "
                     "max_obs_strict=False.")
+        if not auto:
+            return cheb_degree
+        znorm = _assembled({t: _halo_znorm(sh[0], sh[2], sh[3], sh[5], 1)
+                            for t, sh in parts}, n_tiles, p)
+        return _degree_from_znorm(znorm, None, valid, k, max_obs, inf_factor,
+                                  False)
+
+    def analysis_fn(state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
+                    obs_valid, grid_coords):
+        obs = [a if isinstance(a, GlobalTensor) else torch.as_tensor(a)
+               for a in (obs_vals, obs_var, obs_local_idx, obs_coords,
+                         obs_valid)]
+        if not isinstance(grid_coords, GlobalTensor):
+            grid_coords = torch.as_tensor(grid_coords)
         k, n_r, n_c = state_data.shape
         if n_r % m_rows or n_c % m_cols or obs[0].shape[0] % n_tiles:
             raise ValueError(
                 f"a [{n_r}, {n_c}] grid and {obs[0].shape[0]} obs slots "
                 f"must split evenly over the ({m_rows}, {m_cols}) tiles")
         tr, tc = n_r // m_rows, n_c // m_cols
-        degree = cheb_degree
-        if degree is None and needs_degree:
-            # tile-major flattening, the order of shard_observations_2d
-            sd = _numpy(state_data).reshape(k, m_rows, tr, m_cols, tc)
-            sd = sd.transpose(0, 1, 3, 2, 4).reshape(k, n_r * n_c)
-            degree = _halo_auto_degree(
-                sd, *obs, n_tiles, max_obs, inf_factor, consecutive=False)
         p = obs[0].shape[0] // n_tiles
         shards = []
         for t, device in enumerate(devices):
+            if not mine[t]:
+                shards.append(None)
+                continue
             i, j = divmod(t, m_cols)
             rows = slice(i * tr, (i + 1) * tr)
             cols = slice(j * tc, (j + 1) * tc)
             slots = slice(t * p, (t + 1) * p)
             shards.append((
-                state_data[:, rows, cols].to(device).reshape(k, tr * tc),
-                *(a[slots].to(device) for a in obs),
-                grid_coords[rows, cols].to(device)))
+                _block(state_data, (1, 2), tiles2, (i, j),
+                       (slice(None), rows, cols), device).reshape(k, tr * tc),
+                *(_block(a, (0,), flat, (t,), slots, device) for a in obs),
+                _block(grid_coords, (0, 1), tiles2, (i, j), (rows, cols),
+                       device)))
+        degree = host_checks(k, obs[3].shape[1], shards, p)
         # (A) local obs space and pack
         packed = []
-        for state_flat, vals, var, lidx, ocoords, valid, _ in shards:
+        for shard in shards:
+            if shard is None:
+                packed.append(None)
+                continue
+            state_flat, vals, var, lidx, ocoords, valid, _ = shard
             perts, innov = _local_obs_space(state_flat, vals, var, lidx,
                                             valid)
             if local_method == "window":
@@ -858,12 +1003,17 @@ def halo_letkf_analysis_2d(
         # (B) the exchange of every tile at once
         if local_method == "window":
             cands = _ring_halo_2d_masked(packed, k + 1, m_rows, m_cols,
-                                         halo_r, halo_c)
+                                         halo_r, halo_c, owners)
         else:
-            cands = _ring_halo_2d(packed, m_rows, m_cols, halo_r, halo_c)
+            cands = _ring_halo_2d(packed, m_rows, m_cols, halo_r, halo_c,
+                                  owners)
         # (C) solve and apply per tile, then reassemble the grid
         tiles = []
-        for (state_flat, *_, gcoords), cand in zip(shards, cands):
+        for shard, cand in zip(shards, cands):
+            if shard is None:
+                tiles.append(None)
+                continue
+            state_flat, *_, gcoords = shard
             if local_method == "window":
                 out = solve_window(cand, state_flat, gcoords, degree)
             else:
@@ -871,8 +1021,12 @@ def halo_letkf_analysis_2d(
                                   state_flat, localization, max_obs,
                                   inf_factor, method, newton_iters,
                                   use_pallas, degree)
-            tiles.append(out.reshape(k, tr, tc).to(state_data.device))
-        return torch.cat([torch.cat(tiles[i * m_cols:(i + 1) * m_cols],
-                                    dim=2) for i in range(m_rows)], dim=1)
+            tiles.append(out.reshape(k, tr, tc))
+        out = _whole_or_global(tiles, state_data, owners,
+                               lambda t: divmod(t, m_cols))
+        if isinstance(out, GlobalTensor):
+            return out
+        return torch.cat([torch.cat(out[i * m_cols:(i + 1) * m_cols], dim=2)
+                          for i in range(m_rows)], dim=1)
 
     return analysis_fn

@@ -13,6 +13,11 @@ global result.
 The ``grid`` axis shards grid columns (the analysis); the ``ens`` axis of
 :func:`make_forecast_analysis_mesh` is there for a forecast sharded over
 members.
+
+A mesh may span processes (:func:`tpu_assim_torch.parallel.multihost.
+global_grid_mesh`): then ``owners`` gives the rank of the process that
+holds each position, and each process runs the shards of its own
+positions only. A mesh without ``owners`` belongs to one process.
 """
 
 from typing import Optional
@@ -42,13 +47,17 @@ class Mesh:
         ``torch.device``s or device strings, one per mesh position;
         repeats are allowed.
     axis_names : one name per dimension of ``devices``.
+    owners : the rank of the process that holds each position, in the
+        shape of ``devices``; None (the default): this process holds every
+        position.
 
     Attributes: ``devices`` (object array of ``torch.device``),
     ``axis_names`` (tuple), ``shape`` (dict of axis name to extent, as
-    ``mesh.shape[axis]`` in JAX) and ``size``.
+    ``mesh.shape[axis]`` in JAX), ``size`` and ``owners`` (int array or
+    None).
     """
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, owners=None):
         raw = np.asarray(devices, dtype=object)
         flat = np.empty(raw.size, dtype=object)
         flat[:] = [torch.device(d) for d in raw.reshape(-1)]
@@ -60,20 +69,47 @@ class Mesh:
                 f"shape {self.devices.shape}")
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self.size = self.devices.size
+        if owners is not None:
+            owners = np.asarray(owners, dtype=np.int64)
+            if owners.size != self.size:
+                raise ValueError(f"{owners.size} owners for {self.size} mesh "
+                                 "positions")
+            owners = owners.reshape(self.devices.shape)
+        self.owners = owners
+
+    @property
+    def spans_processes(self) -> bool:
+        """Do the positions belong to more than one process?"""
+        return self.owners is not None and np.unique(self.owners).size > 1
 
 
-def _axis_devices(mesh: Mesh, *axes: str):
-    """The devices along ``axes`` (every other axis at position 0), flat
-    in row-major order over ``axes``: one per shard."""
+def _along(mesh: Mesh, values: np.ndarray, axes):
+    """``values`` (an array in the mesh's shape) along ``axes``, every
+    other axis at position 0, flat in row-major order over ``axes``."""
     for axis in axes:
         if axis not in mesh.shape:
             raise ValueError(f"axis {axis!r} not in mesh axes "
                              f"{mesh.axis_names}")
     order = [mesh.axis_names.index(a) for a in axes]
     rest = [i for i in range(mesh.devices.ndim) if i not in order]
-    arr = np.transpose(mesh.devices, order + rest)
+    arr = np.transpose(values, order + rest)
     arr = arr.reshape(arr.shape[:len(order)] + (-1,))[..., 0]
     return list(arr.reshape(-1))
+
+
+def _axis_devices(mesh: Mesh, *axes: str):
+    """The devices along ``axes`` (every other axis at position 0), flat
+    in row-major order over ``axes``: one per shard."""
+    return _along(mesh, mesh.devices, axes)
+
+
+def _axis_owners(mesh: Mesh, *axes: str):
+    """The owner rank of each shard along ``axes`` (as
+    :func:`_axis_devices` orders them), or None for a mesh of one
+    process."""
+    if not mesh.spans_processes:
+        return None
+    return [int(o) for o in _along(mesh, mesh.owners, axes)]
 
 
 def _cuda_devices():

@@ -5,7 +5,10 @@ coordinates, on one device.
 
 Dimension contract: ``('var_name', 'time', 'ensemble', 'grid')``. The grid
 coordinates ``grid_coords [grid, n_coord]`` feed the localization distance
-functions.
+functions. A model adapter may set more attributes on a state (the
+TerrSysMP adapters set ``grid_dims``, ``grid_shape`` and ``vgrid``); the
+states derived from it (:meth:`EnsembleState.replace`,
+:meth:`EnsembleState.sel_time_index`, the arithmetic) keep them.
 """
 
 from typing import Optional, Tuple
@@ -90,14 +93,16 @@ class EnsembleState:
 
     def replace(self, data=None, times=None,
                 grid_coords=None) -> "EnsembleState":
-        """A state sharing everything but the given tensors."""
+        """A state sharing everything but the given tensors, the
+        attributes an adapter set included."""
         obj = object.__new__(EnsembleState)
-        obj.data = self.data if data is None else data
-        obj.times = self.times if times is None else times
-        obj.grid_coords = (self.grid_coords if grid_coords is None
-                           else grid_coords)
-        obj.var_names = self.var_names
-        obj.ens_members = self.ens_members
+        obj.__dict__.update(self.__dict__)
+        if data is not None:
+            obj.data = data
+        if times is not None:
+            obj.times = times
+        if grid_coords is not None:
+            obj.grid_coords = grid_coords
         return obj
 
     # ------------------------------------------------------------- properties
@@ -164,13 +169,8 @@ class EnsembleState:
 
     def sel_time_index(self, idx: int) -> "EnsembleState":
         """The state at one time, kept as a length-1 time dimension."""
-        return EnsembleState(
-            self.data[:, idx:idx + 1],
-            times=self.times[idx:idx + 1],
-            grid_coords=self.grid_coords,
-            var_names=self.var_names,
-            ens_members=self.ens_members,
-        )
+        return self.replace(data=self.data[:, idx:idx + 1],
+                            times=self.times[idx:idx + 1])
 
     # -------------------------------------------------------------- arithmetic
     def _binop(self, other, op) -> "EnsembleState":
