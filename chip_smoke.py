@@ -2,7 +2,8 @@
 Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
 Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
-IEnKS smoother (Jacobi SVD + fused RK4) as a step and through its class
+IEnKS smoother (Jacobi SVD + fused RK4) as a step, grid-sharded over 8
+virtual shards of the card and across two processes, and through its class
 API, with its gradient through both kernels, the neighborhood solvers (cheb,
 pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
 localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
@@ -80,7 +81,10 @@ Phases (one line each; any failure exits non-zero):
     phase 26's config-3 window (K1, 4 launches a process) and top-k
     ppermute (K4, 4) analyses from their own blocks and from whole tensors,
     each bit for bit phase 26's; comm="rdma" raises across them; their
-    DCP weight checkpoint loads whole equal to one process's; a child's
+    DCP weight checkpoint loads whole equal to one process's; phase 32's
+    sharded smoother over the 2 x 4 shards, both kinds, from blocks and
+    from whole tensors, bit for bit phase 32's (K2 x 8, K3 x 16 a
+    process), a step timed between barriers; a child's
     NCCL world of one (process_info, mesh, both analyses as phase 26's);
     the native obs loader (built, repaired) feeds 6 config-3 files at
     depth 3 through the window analysis, and a child makes 200 passes;
@@ -91,6 +95,15 @@ Phases (one line each; any failure exits non-zero):
     a horizontal GC taper, postprocess_cosmo; NaN exactly at the vgrid
     padding, 4096 columns against f64 eigh, the COSMO and CLM round trips
     the identity; host times
+ 32 (after 29, before 30) the grid-sharded localized IEnKS at bench config
+    9 over 8 virtual shards of the card (1250 columns each), transform and
+    bundle: K2 x 16 and K3 x 32 a step, against phase 10's unsharded step
+    (1e-6 of max, the same NaN columns; whether bit for bit) and the
+    transform against its f64 step (1e-5); times in turns with the
+    unsharded step, torch.profiler windows of both and the host's launches
+    a step; whether a batched matrix-vector product of the inner step's
+    shape is the same in 8 batches of 1250 as in one of 10^4, through
+    cuBLAS's gemv (printed) and through ienks._matvec (checked)
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -176,7 +189,10 @@ from tpu_assim_torch.obs_ops.terrsysmp import CosmoT2mOperator
 from tpu_assim_torch.ops.etkf import letkf_weights_dense
 from tpu_assim_torch.parallel import cuda_halo as k8
 from tpu_assim_torch.parallel import make_grid_mesh, multihost
-from tpu_assim_torch.parallel import sharded_letkf_weights
+from tpu_assim_torch.parallel import (
+    sharded_letkf_weights,
+    sharded_lienks_step,
+)
 from tpu_assim_torch.parallel.halo import (
     _halo_max_in_support,
     halo_letkf_analysis,
@@ -210,8 +226,6 @@ GRAD_TOL = 1e-4     # K3's gradient against f64 on a spread spectrum,
                     # relative to max|reference| (f32 rounding: ~7e-6)
 SMOOTHER_GRAD_TOL = 1e-3  # the class smoother's f32 gradient against f64,
                           # relative to max|reference|
-BUNDLE_FACTOR = 2.0  # the chunked f32 class bundle's distance from f64, in
-                     # units of the f32 functional bundle step's
 K1_KERNELS = ("window1d", "check_sorted")  # the kernels of a K1 call
 # The least time of a kernel's work on an H100 SXM (its published peak
 # rates): its bytes at the HBM rate, its FLOPs at the f32 rate outside the
@@ -1110,7 +1124,9 @@ def main():
     kernelized_phases(dev, gpu, loc, w, kinds, launches)
     ref26 = halo_phases(dev, gpu, kinds, launches)
     autograd_phase(dev, gpu, loc, w)
-    multiprocess_phase(dev, gpu, ref26)
+    ref32 = sharded_smoother_phase(dev, gpu, loc, w, exact_nb(worst), out10,
+                                   out_b, oracle10, ms_step)
+    multiprocess_phase(dev, gpu, ref26, ref32)
     terrsysmp_phase(dev, gpu)
 
     sources = {
@@ -1505,18 +1521,15 @@ def smoother_phases(dev, gpu, loc, w, nb, oracle10, out10, out_b,
         f"max rel err against the f32 functional step and the f64 step: "
         + "; ".join(f"{name} {a!r}, {b!r}" for name, (a, b) in errs.items())
         + f"; the f32 functional bundle against the f64 one {rel_b64!r}")
+    # every class call against its functional twin (a column's inner step
+    # does not depend on its chunk: ops/ienks.py:_matvec); the transform
+    # also against f64, where the bundle's f32 conditioning (it divides
+    # rounding by epsilon) sets its distance, printed above
     for name, (to_twin, to_f64) in errs.items():
+        check(to_twin <= TOL, f"{name} vs its functional step {to_twin!r} "
+              f"> {TOL}")
         if "Transform" in name:
-            check(to_twin <= TOL and to_f64 <= TOL,
-                  f"{name}: {to_twin!r}, {to_f64!r} > {TOL}")
-    check(errs["LocalizedIEnKSBundle chunksize=None"][0] <= TOL,
-          f"unchunked class bundle vs its functional step > {TOL}")
-    # in chunks, the inner steps' batched products round otherwise, which
-    # the bundle magnifies to its f32 conditioning: held to the functional
-    # f32 step's own distance from f64
-    check(errs["LocalizedIEnKSBundle chunksize=4096"][1]
-          <= BUNDLE_FACTOR * max(rel_b64, TOL),
-          f"chunked class bundle vs f64 > {BUNDLE_FACTOR} x {rel_b64!r}")
+            check(to_f64 <= TOL, f"{name} vs f64 {to_f64!r} > {TOL}")
 
     # K3's gradient: sign-invariant compositions of the kernel's f32
     # factors against torch.linalg.svd's autograd in f64 on the CPU
@@ -2795,6 +2808,128 @@ def halo_phases(dev, gpu, kinds, launches):
             "pallas_fn": ppermute3, "args": args3}
 
 
+# -- 32. the grid-sharded localized IEnKS -------------------------------------
+
+SHARD_TOL = 1e-6    # the sharded step against the unsharded one, of max
+SHARDS32 = 8        # virtual shards of the card in phase 32
+L96_DT, L96_STEPS = 0.05, 4
+
+
+def config9_step(mesh, loc, nb, kind):
+    """The sharded localized IEnKS at bench config 9: 4 RK4 steps of
+    Lorenz-96, 2 outer iterations, tau 1, the exact window ``nb``."""
+    return sharded_lienks_step(mesh, loc, RK4Integrator(Lorenz96(), L96_DT),
+                               L96_STEPS, n_outer=2, kind=kind, tau=1.0,
+                               max_obs=nb, selection="window")
+
+
+def batch_invariance(dev):
+    """Whether a batched matrix-vector product [10^4, 40, 8] x [10^4, 1,
+    8]^T, the shape of the IEnKS inner step's gradient, computed as 8
+    batches of 1250 equals it computed at once, bit for bit: through
+    cuBLAS's batched gemv (an einsum) and through ``ienks._matvec``."""
+    rng = np.random.RandomState(SEED + 32)
+    x, y = (torch.as_tensor(rng.normal(size=(10000, rows, 8)).astype(
+        np.float32), device=dev) for rows in (40, 1))
+    gemv = lambda a, b: torch.einsum("...kl,...ml->...km", a, b)  # noqa
+    same = []
+    for fn in (gemv, ienks._matvec):
+        parts = [fn(x[i:i + 1250], y[i:i + 1250])
+                 for i in range(0, 10000, 1250)]
+        same.append(bool(torch.equal(torch.cat(parts), fn(x, y))))
+    return same
+
+
+def host_calls(fn, calls=3):
+    """Per call of ``fn``, under torch.profiler's CPU activity: the kernel
+    launches the host made and the host ms of each K3 call (its
+    ``autograd.Function``, ``_SVDJacobi``), None without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    k3_ms = [e.cpu_time_total / e.count / 1e3 for e in events
+             if e.key == "_SVDJacobi"]
+    return launches / calls, (k3_ms[0] if k3_ms else None)
+
+
+def sharded_smoother_phase(dev, gpu, loc, w, nb, out10, out_b, oracle10,
+                           ms_step):
+    """Phase 32: bench config 9 through the grid-sharded step over 8
+    virtual shards of the card, both kinds: K2 and K3 on every shard
+    (launches checked), against phase 10's unsharded step (1e-6 of max,
+    the same NaN columns) and the transform against its f64 step (1e-5);
+    times beside the unsharded step's, profiler windows, the host's
+    launches; whether the inner step's matrix-vector product depends on the
+    batch (cuBLAS's gemv, and ``ienks._matvec``, which must not). Returns
+    the two results, which phase 30's processes must equal bit for bit."""
+    t_phase = time.perf_counter()
+    wt = [torch.as_tensor(x, device=dev) for x in w]
+    mesh = make_grid_mesh(SHARDS32, devices=[dev] * SHARDS32)
+    expected = {"rk4_l96": 2 * SHARDS32, "svd_jacobi": 4 * SHARDS32}
+    refs, notes = {}, []
+    for kind, unsharded in (("transform", out10), ("bundle", out_b)):
+        step = config9_step(mesh, loc, nb, kind)
+        out, counts = counted(step, *wt)
+        check(counts == expected, f"sharded {kind} launches {counts}")
+        check(torch.equal(torch.isnan(out), torch.isnan(unsharded)),
+              f"sharded {kind}: NaN entries differ from the unsharded step")
+        ok = ~torch.isnan(unsharded)
+        err = float((out[ok] - unsharded[ok]).abs().max()
+                    / unsharded[ok].abs().max())
+        check(err <= SHARD_TOL, f"sharded {kind} against the unsharded step "
+              f"{err!r} > {SHARD_TOL}")
+        bits = "" if torch.equal(out[ok], unsharded[ok]) else "not "
+        note = (f"{kind}: launches {counts}, against the unsharded step "
+                f"{err!r} of max ({bits}bit for bit), "
+                f"{int(torch.isnan(out).any(0).sum())} NaN columns as it")
+        if kind == "transform":
+            _, rel64 = compare(out, oracle10, "sharded transform vs f64 step")
+            note += f"; against the f64 step {rel64!r} (budget {TOL})"
+        notes.append(note)
+        refs[kind] = out
+    g = wt[0].shape[1]
+    log(32, f"the grid-sharded localized IEnKS (config 9: ens 40, grid {g}, "
+        f"obs {wt[1].shape[0]}, GC r={RADIUS}, 2 outer, {L96_STEPS}xRK4, "
+        f"max_obs {nb} window) over {SHARDS32} virtual shards of the card, "
+        f"{g // SHARDS32} columns each: " + "; ".join(notes))
+    step = config9_step(mesh, loc, nb, "transform")
+    local = make_lienks_step(loc, RK4Integrator(Lorenz96(), L96_DT),
+                             L96_STEPS, n_outer=2, tau=1.0, max_obs=nb,
+                             selection="window")
+    three = lambda fn: median_ms(fn, reps=10, inner=3)       # noqa: E731
+    ms_sharded, ms_unsharded = paired_ms(
+        lambda: step(*wt), lambda: local(*wt), plain_time=three,
+        kernel_time=three)
+    log(32, f"transform step, CUDA events around 3 back-to-back steps, "
+        f"median of 10, in turns: sharded {ms_sharded!r} ms = "
+        f"{g / ms_sharded * 1e3!r} grid-points/s, unsharded "
+        f"{ms_unsharded!r} ms (phase 11: {ms_step!r} ms) [{gpu}]")
+    hosts = {name: host_calls(fn) for name, fn in (
+        ("sharded", lambda: step(*wt)), ("unsharded", lambda: local(*wt)))}
+    gemv_same, matvec_same = batch_invariance(dev)
+    check(matvec_same, "ienks._matvec: 8 batches of 1250 differ from one "
+          "of 10^4")
+    log(32, "torch.profiler, 5 calls each: "
+        + profile_note("sharded step", lambda: step(*wt)) + "; "
+        + profile_note("unsharded step", lambda: local(*wt))
+        + "; host (torch.profiler CPU activity, 3 calls): " + "; ".join(
+            f"{name} {n!r} kernel launches a step, {k3!r} ms a K3 call"
+            for name, (n, k3) in hosts.items())
+        + f"; [10^4, 40, 8] x [10^4, 1, 8]^T in 8 batches of 1250 equal to "
+        f"one of 10^4: cuBLAS's batched gemv {gemv_same}, ienks._matvec "
+        f"{matvec_same}; phase {time.perf_counter() - t_phase:.1f} s "
+        f"[{gpu}]")
+    return refs
+
+
 # -- 30. the halo LETKF across processes --------------------------------------
 
 GROUP_TIMEOUT = 60   # s: the process groups' timeout
@@ -2908,6 +3043,26 @@ def phase30_worker(rank, port, out):
         results[name + "_whole"] = fn(*whole).cpu()
         report[name + "_ms"] = synced_ms(fn, blocks)
         report[name + "_whole_ms"] = synced_ms(fn, whole)
+    # phase 32's sharded smoother over the two processes' 8 shards
+    w9 = build_workload(40, 10000, 1000)
+    nb9 = exact_nb(k1.max_in_support_1d(w9[5][:, 0], w9[4][:, 0], RADIUS))
+    whole9 = [torch.as_tensor(a, device=dev) for a in w9]
+    blocks9 = ([multihost.host_local_to_global(mesh, local(w9[0], 1), axis=1)]
+               + whole9[1:4]
+               + [multihost.host_local_to_global(mesh, local(w9[4], 0),
+                                                 axis=0), whole9[5]])
+    for kind in ("transform", "bundle"):
+        step = config9_step(mesh, loc, nb9, kind)
+        got, report[f"lienks_{kind}_launches"] = counted(step, *blocks9)
+        check(isinstance(got, multihost.GlobalTensor)
+              and sorted(got.blocks) == [(s,) for s in
+                                         range(4 * rank, 4 * rank + 4)],
+              f"lienks: this process's blocks are {sorted(got.blocks)}")
+        results[f"lienks_{kind}"] = got.gather().cpu()
+        got, report[f"lienks_{kind}_whole_launches"] = counted(step, *whole9)
+        results[f"lienks_{kind}_whole"] = got.cpu()
+    report["lienks_ms"] = synced_ms(step, blocks9)
+    report["lienks_whole_ms"] = synced_ms(step, whole9)
     perts, innov, ginfo, oinfo = config3_obs_space(w3, dev)
     weights = sharded_letkf_weights(
         mesh, loc, perts, innov,
@@ -2979,13 +3134,15 @@ def loader_passes(directory, passes):
     print(passes, flush=True)
 
 
-def multiprocess_phase(dev, gpu, ref26):
+def multiprocess_phase(dev, gpu, ref26, ref32):
     """Phase 30: the config-3 halo analyses across two processes that
     share the card (gloo, 4 virtual shards each) against phase 26's
     one-process analyses, bit for bit; comm="rdma" raising across them;
-    a world of one process over NCCL; the obs-ingest loader feeding the
-    halo analysis, and 200 loader passes in a child; the sharded weight
-    checkpoint written by the two processes."""
+    phase 32's grid-sharded smoother over the two processes, from blocks
+    and from whole tensors, against ``ref32`` bit for bit; a world of one
+    process over NCCL; the obs-ingest loader feeding the halo analysis,
+    and 200 loader passes in a child; the sharded weight checkpoint
+    written by the two processes."""
     t_phase = time.perf_counter()
     check(native.native_available() and obs_pipeline._lib() is not None,
           "the native runtime (runtime/cpp) did not build")
@@ -3053,6 +3210,15 @@ def multiprocess_phase(dev, gpu, ref26):
                 for form in ("", "_whole"):
                     same_bits(res[name + form].to(dev), ref26[name],
                               f"rank {r} {name}{form} against phase 26")
+            for kind in ("transform", "bundle"):
+                for form in ("", "_whole"):
+                    check(rep[f"lienks_{kind}{form}_launches"]
+                          == {"rk4_l96": 8, "svd_jacobi": 16},
+                          f"rank {r}: sharded {kind}{form} launches "
+                          f"{rep[f'lienks_{kind}{form}_launches']}")
+                    same_bits(res[f"lienks_{kind}{form}"].to(dev),
+                              ref32[kind], f"rank {r} sharded {kind}{form} "
+                              "against phase 32")
         with open(os.path.join(out, "nccl.json")) as f:
             rep_nccl = json.load(f)
         res = torch.load(os.path.join(out, "nccl.pt"))
@@ -3085,6 +3251,14 @@ def multiprocess_phase(dev, gpu, ref26):
             f"{ms_one[name]!r} ms; launches rank 0 "
             f"{reports[0][name + '_launches']}, rank 1 "
             f"{reports[1][name + '_launches']}")
+    notes.append(
+        f"the sharded smoother (config 9, transform): 2 processes "
+        f"{reports[0]['lienks_ms']!r} ms a step from blocks, "
+        f"{reports[0]['lienks_whole_ms']!r} ms from whole tensors (between "
+        f"barriers); launches a process "
+        f"{reports[0]['lienks_transform_launches']}; both kinds, from "
+        f"blocks and from whole tensors, equal to phase 32 bit for bit on "
+        f"both ranks")
     log(30, f"config 3 (ens 40, grid {G3}, obs {O3}, GC r={RADIUS}, nb "
         f"{opts['max_obs']}, halo {opts['halo_width']}, degree {DEGREE}) "
         "across 2 processes (gloo, 4 virtual shards of the card each): "

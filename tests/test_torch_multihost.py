@@ -15,7 +15,10 @@ the JAX package and against the port in one process.
   equal JAX's on its 8 virtual CPU devices within 1e-10, the f32 kernel
   routes within 1e-5 of max|ref| (their tolerance in
   tests/test_torch_halo.py); the sharded weight checkpoint (DCP) written
-  by both processes loads whole and by mesh; a strict-window violation
+  by both processes loads whole and by mesh; the grid-sharded localized
+  IEnKS step (both kinds, JAX's case of tests/test_parallel.py) from whole
+  tensors and from blocks, bit for bit the one-process 8-shard step and
+  within 1e-10 of JAX's auto-partitioned step; a strict-window violation
   raises on both ranks and neither hangs.
 - Every run of two processes has a process-group timeout of 60 s and a
   join limit of 120 s, after which the children are killed and the test
@@ -41,14 +44,18 @@ import tpu_assim.ops.pallas.letkf as jpk
 from tpu_assim.ops.localization import GaspariCohn as JGaspariCohn
 from tpu_assim.parallel import halo as jh
 from tpu_assim.parallel import letkf as jpl
+from tpu_assim.analysis import make_lienks_step as j_make_lienks_step
+from tpu_assim.models import Lorenz96 as JLorenz96
+from tpu_assim.models import RK4Integrator as JRK4
 from tpu_assim.parallel import multihost as jmh
 from tpu_assim.parallel.mesh import make_grid_mesh as jax_grid_mesh
 
 from tpu_assim_torch.convert import coord1_distance
+from tpu_assim_torch.models import Lorenz96, RK4Integrator
 from tpu_assim_torch.ops.localization import GaspariCohn
 from tpu_assim_torch.parallel import halo as th
 from tpu_assim_torch.parallel import letkf as tpl
-from tpu_assim_torch.parallel import make_grid_mesh
+from tpu_assim_torch.parallel import make_grid_mesh, sharded_lienks_step
 from tpu_assim_torch.parallel import multihost as mh
 from tpu_assim_torch.parallel.mesh import Mesh
 from tpu_assim_torch.utils import checkpoint as ckpt
@@ -110,6 +117,8 @@ def inputs(seed=7):
                                    grid2[ij[:, 0], ij[:, 1]], (16, 24),
                                    (2, 4))
     k, l, g = 10, 24, 64
+    rng_s = np.random.RandomState(seed + 1)
+    obs_s = np.arange(0, g, 2, dtype=np.int32)
     return {
         "state": state, "vals": sh[0], "var": sh[1], "lidx": sh[2],
         "ocoords": sh[3], "valid": sh[4], "grid": grid,
@@ -120,7 +129,17 @@ def inputs(seed=7):
         "ginfo": np.hstack([np.zeros((g, 1)), np.arange(g)[:, None] * 1.0]),
         "oinfo": np.hstack([np.zeros((l, 1)),
                             rng.uniform(0, g, size=(l, 1))]),
+        # the smoother: tests/test_parallel.py's case of the grid-sharded
+        # localized IEnKS
+        "s_state": rng_s.normal(size=(k, g)) + 2.0,
+        "s_vals": rng_s.normal(size=g // 2), "s_var": np.full(g // 2, 0.5),
+        "s_idx": obs_s, "s_grid": np.arange(g, dtype=np.float64)[:, None],
+        "s_ocoords": obs_s.astype(np.float64)[:, None],
     }
+
+
+SMOOTHER = ("s_state", "s_vals", "s_var", "s_idx", "s_grid", "s_ocoords")
+SMOOTHER_OPTS = dict(n_outer=2, tau=0.8, max_obs=18, selection="window")
 
 
 def args1(w):
@@ -163,8 +182,10 @@ WORKER = textwrap.dedent("""
     sys.path.insert(0, sys.argv[5])
     sys.modules["jax"] = None
     from tpu_assim_torch.convert import coord1_distance
+    from tpu_assim_torch.models import Lorenz96, RK4Integrator
     from tpu_assim_torch.ops.localization import GaspariCohn
     from tpu_assim_torch.parallel import halo as th, letkf as tpl
+    from tpu_assim_torch.parallel import sharded_lienks_step
     from tpu_assim_torch.parallel import multihost as mh
     from tpu_assim_torch.parallel.mesh import Mesh
     from tpu_assim_torch.utils import checkpoint as ckpt
@@ -244,6 +265,20 @@ WORKER = textwrap.dedent("""
         mesh, loc, mh.host_local_to_global(mesh, local(t["data"], 3),
                                            axis=3),
         t["perts"], t["innov"], t["ginfo"], t["oinfo"], 1.1).gather()
+    smoother = [t[n] for n in ("s_state", "s_vals", "s_var", "s_idx",
+                               "s_grid", "s_ocoords")]
+    for kind in ("transform", "bundle"):
+        step = sharded_lienks_step(
+            mesh, loc, RK4Integrator(Lorenz96(), 0.05), 3, n_outer=2,
+            kind=kind, tau=0.8, max_obs=18, selection="window")
+        res["lienks_" + kind] = step(*smoother)
+        glob = step(mh.host_local_to_global(mesh, local(smoother[0], 1),
+                                            axis=1), *smoother[1:4],
+                    mh.host_local_to_global(mesh, local(smoother[4], 0),
+                                            axis=0), smoother[5])
+        assert sorted(glob.blocks) == [(s,) for s in
+                                       range(4 * rank, 4 * rank + 4)]
+        res["lienks_" + kind + "_global"] = glob.gather()
     weights = tpl.sharded_letkf_weights(
         mesh, loc, t["perts"], t["innov"],
         mh.host_local_to_global(mesh, local(t["ginfo"], 0), axis=0),
@@ -493,6 +528,33 @@ def test_two_processes_sharded_letkf(two_process, form):
         *map(jnp.asarray, (w["data"], w["perts"], w["innov"], w["ginfo"],
                            w["oinfo"])), 1.1)
     close(ranks[0]["sharded" + form], jax_ref)
+
+
+@pytest.mark.parametrize("form", ["", "_global"])
+@pytest.mark.parametrize("kind", ["transform", "bundle"])
+def test_two_processes_sharded_lienks(two_process, kind, form):
+    """The grid-sharded localized IEnKS across two processes (its halo of
+    24 left and 12 right crosses between them, and the obs equivalents are
+    assembled from both): bit for bit the one-process 8-shard step, and
+    within 1e-10 of JAX's step auto-partitioned over 8 devices."""
+    w, ranks, _ = two_process
+    t = [torch.from_numpy(w[n]) for n in SMOOTHER]
+    ref = sharded_lienks_step(
+        make_grid_mesh(8, devices=CPU8), GaspariCohn((RADIUS,),
+                                                     coord1_distance),
+        RK4Integrator(Lorenz96(), 0.05), 3, kind=kind,
+        **SMOOTHER_OPTS)(*t).numpy()
+    for res in ranks:
+        np.testing.assert_array_equal(res["lienks_" + kind + form], ref)
+    state = jax.device_put(jnp.asarray(w["s_state"]), jax.sharding.
+                           NamedSharding(jax_grid_mesh(8),
+                                         jax.sharding.PartitionSpec(
+                                             None, "grid")))
+    jax_ref = j_make_lienks_step(
+        JGaspariCohn((RADIUS,), jax_coord1), JRK4(JLorenz96(), 0.05), 3,
+        kind=kind, **SMOOTHER_OPTS)(
+        state, *(jnp.asarray(w[n]) for n in SMOOTHER[1:]))
+    close(ranks[0]["lienks_" + kind + form], jax_ref)
 
 
 def test_two_processes_checkpoint(two_process):

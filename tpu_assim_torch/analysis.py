@@ -696,65 +696,87 @@ def make_lienks_step(
     def step(state_data, obs_vals, obs_var, obs_idx, grid_coords,
              obs_coords):
         k, g = state_data.shape
-        dtype, device = state_data.dtype, state_data.device
         mean = torch.mean(state_data, dim=0)
         perts = state_data - mean[None, :]                     # [k, g]
-        grid_info = _with_time(grid_coords)
-        obs_info = _with_time(obs_coords)
-        poisoned = None
-        if localization is not None and max_obs is not None:
-            idx, w_nbh = select_neighborhoods(localization, grid_info,
-                                              obs_info, max_obs, selection,
-                                              max_obs_strict)
-            sqrt_w = safe_sqrt_keep_nan(w_nbh).to(dtype)      # [g, nb]
-            # the strict window's NaN poison: the inner SVDs take zeros in
-            # its place, and the columns come out NaN at the end
-            poisoned = torch.isnan(sqrt_w).any(-1)            # [g]
-            sqrt_w = torch.where(poisoned[:, None], 0.0, sqrt_w)
-        else:
-            idx = None
-            if localization is None:
-                w_loc = torch.ones(g, obs_info.shape[0], dtype=dtype,
-                                   device=device)
-            else:
-                w_loc = localization.taper_weights(grid_info,
-                                                   obs_info).to(dtype)
-            sqrt_w = safe_sqrt(w_loc)                          # [g, o]
-
+        dtype, device = state_data.dtype, state_data.device
+        idx, sqrt_w, poisoned = _lienks_taper(
+            localization, max_obs, selection, max_obs_strict, grid_coords,
+            obs_coords, dtype, device)
         eye = torch.eye(k, dtype=dtype, device=device)
         weights = eye.expand(g, k, k)
         for _ in range(n_outer):
-            if kind == "bundle":
-                # the bundle propagates with eps I + mean(W)
-                w_model = epsilon * eye + torch.mean(weights, dim=-1,
-                                                     keepdim=True)
-            else:
-                w_model = weights
-            pseudo = mean[None, :] + torch.einsum("kg,gkm->mg", perts,
-                                                  w_model)
-            pseudo = _forward(pseudo)
+            pseudo = _forward(_lienks_pseudo(mean, perts, weights, kind,
+                                             epsilon, eye))
             if obs_operator is None:
                 ens_obs = pseudo[:, obs_idx]                   # [k, o]
             else:
                 ens_obs = obs_operator(pseudo)
             perts_o, innov = _normalized_obs_space(ens_obs, obs_vals,
                                                    obs_var)
-            if idx is not None:
-                scaled_perts = (perts_o[:, idx].permute(1, 0, 2)
-                                * sqrt_w[:, None, :])          # [g, k, nb]
-                scaled_obs = (innov[idx] * sqrt_w)[:, None, :]
-            else:
-                scaled_perts = perts_o[None, :, :] * sqrt_w[:, None, :]
-                scaled_obs = (innov[None, :] * sqrt_w)[:, None, :]
-            if kind == "bundle":
-                weights = ienks_bundle_step(weights, scaled_perts,
-                                            scaled_obs, tau, epsilon)
-            else:
-                weights = ienks_transform_step(weights, scaled_perts,
-                                               scaled_obs, tau)
-        out = mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
-        if poisoned is None:
-            return out
-        return torch.where(poisoned[None, :], torch.nan, out)
+            weights = _lienks_inner(weights, perts_o, innov, idx, sqrt_w,
+                                    kind, tau, epsilon)
+        return _lienks_apply(mean, perts, weights, poisoned)
 
     return step
+
+
+# -- the localized IEnKS's per-column pieces ----------------------------------
+# make_lienks_step runs them on every column of the grid, and
+# parallel.lienks.sharded_lienks_step on each shard's columns.
+
+def _lienks_taper(localization, max_obs, selection, max_obs_strict,
+                  grid_coords, obs_coords, dtype, device):
+    """The per-column neighborhood selection and sqrt taper weights:
+    ``(idx [g, nb] or None, sqrt_w [g, nb] (or [g, o] dense), poisoned [g]
+    or None)``. ``poisoned`` marks the columns the strict window poisons;
+    their weights are zero, so that no inner SVD sees a NaN."""
+    grid_info = _with_time(grid_coords)
+    obs_info = _with_time(obs_coords)
+    if localization is not None and max_obs is not None:
+        idx, w_nbh = select_neighborhoods(localization, grid_info, obs_info,
+                                          max_obs, selection, max_obs_strict)
+        sqrt_w = safe_sqrt_keep_nan(w_nbh).to(dtype)          # [g, nb]
+        poisoned = torch.isnan(sqrt_w).any(-1)                # [g]
+        return idx, torch.where(poisoned[:, None], 0.0, sqrt_w), poisoned
+    if localization is None:
+        w_loc = torch.ones(grid_info.shape[0], obs_info.shape[0],
+                           dtype=dtype, device=device)
+    else:
+        w_loc = localization.taper_weights(grid_info, obs_info).to(dtype)
+    return None, safe_sqrt(w_loc), None                        # [g, o]
+
+
+def _lienks_pseudo(mean, perts, weights, kind, epsilon, eye):
+    """The pseudo-ensemble [k, g] of the per-column weights [g, k, k]
+    (the bundle propagates with ``eps I + mean(W)``)."""
+    if kind == "bundle":
+        weights = epsilon * eye + torch.mean(weights, dim=-1, keepdim=True)
+    return mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
+
+
+def _lienks_inner(weights, perts_o, innov, idx, sqrt_w, kind, tau,
+                  epsilon):
+    """One localized Gauss-Newton inner step per column: the normalized
+    obs-space perturbations [k, o] and innovations [o] (replicated over
+    the columns) scaled by each column's sqrt taper, through the
+    transform or bundle step; returns the new weights [g, k, k]."""
+    if idx is not None:
+        scaled_perts = (perts_o[:, idx].permute(1, 0, 2)
+                        * sqrt_w[:, None, :])                  # [g, k, nb]
+        scaled_obs = (innov[idx] * sqrt_w)[:, None, :]
+    else:
+        scaled_perts = perts_o[None, :, :] * sqrt_w[:, None, :]
+        scaled_obs = (innov[None, :] * sqrt_w)[:, None, :]
+    if kind == "bundle":
+        return ienks_bundle_step(weights, scaled_perts, scaled_obs, tau,
+                                 epsilon)
+    return ienks_transform_step(weights, scaled_perts, scaled_obs, tau)
+
+
+def _lienks_apply(mean, perts, weights, poisoned):
+    """The analysis [k, g] of the final weights, NaN in the poisoned
+    columns."""
+    out = mean[None, :] + torch.einsum("kg,gkm->mg", perts, weights)
+    if poisoned is None:
+        return out
+    return torch.where(poisoned[None, :], torch.nan, out)

@@ -54,10 +54,20 @@ def _decompose_weights(weights: torch.Tensor, ens_size: int
     return w_mean, w_perts_inv, w_prec
 
 
+def _matvec(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y^T`` for a single row ``y [..., 1, l]``: ``[..., k, 1]``, as
+    a product and a sum over the trailing dim. A batched matrix-vector
+    product goes to cuBLAS's gemv, whose kernel, and so whose summation
+    order, changes with the batch count; this reduction sums each entry
+    in one order whatever the batch, so a column's step does not depend
+    on the columns batched with it (a grid shard, a chunk)."""
+    return torch.sum(x * y, dim=-1, keepdim=True)
+
+
 def _get_gradient(w_mean: torch.Tensor, dh_dw: torch.Tensor,
                   normed_obs: torch.Tensor, ens_size: int) -> torch.Tensor:
     """Gauss-Newton gradient ``(K-1) w_mean - dH/dW y^T``."""
-    return (ens_size - 1) * w_mean + matrix_product(dh_dw, -normed_obs)
+    return (ens_size - 1) * w_mean + _matvec(dh_dw, -normed_obs)
 
 
 def _update_covariance(w_prec: torch.Tensor, dh_dw: torch.Tensor,
@@ -85,7 +95,7 @@ def _ienks_step(weights, normed_perts, normed_obs, tau, dh_dw_fn):
     dh_dw = dh_dw_fn(normed_perts, w_perts_inv)
     grad = _get_gradient(w_mean, dh_dw, normed_obs, ens_size)
     w_cov, w_perts = _update_covariance(w_prec, dh_dw, ens_size, tau)
-    w_mean = w_mean - tau * torch.einsum("...ij,...jl->...il", w_cov, grad)
+    w_mean = w_mean - tau * _matvec(w_cov, grad.transpose(-1, -2))
     return w_mean + w_perts
 
 
