@@ -8,9 +8,9 @@ API, with its gradient through both kernels, the neighborhood solvers (cheb,
 pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
 localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
 LETKF over 8 virtual shards of the card (halo exchange kernel K8), also
-across two processes, and the TerrSysMP (COSMO/CLM) adapters at COSMO-DE
-width at the reference benchmark shapes, checks them against f64 oracles,
-and times the kernels.
+across two processes (K8 over CUDA IPC), and the TerrSysMP (COSMO/CLM)
+adapters at COSMO-DE width at the reference benchmark shapes, checks them
+against f64 oracles, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -78,14 +78,20 @@ Phases (one line each; any failure exits non-zero):
     gradients against f64 (CPU); K5, K7 and K8 raise on a gradient
  30 the halo LETKF across processes (after 29): two children of this
     script share the card over gloo, 4 virtual shards each, and run
-    phase 26's config-3 window (K1, 4 launches a process) and top-k
-    ppermute (K4, 4) analyses from their own blocks and from whole tensors,
-    each bit for bit phase 26's; comm="rdma" raises across them; their
+    phase 26's config-3 window (K1, 4 launches a process), top-k
+    ppermute (K4, 4) and top-k rdma (K8 over CUDA IPC + K4, 1 + 4)
+    analyses from their own blocks and from whole tensors, each bit for
+    bit phase 26's, rdma ppermute's; a profiler window of each top-k call
+    (no device-to-host copy in rdma's); K8's exchange alone across them
+    at config 3 and [103, 8192] x 8 (device time, bound) and both calls
+    and exchanges timed in turns between barriers; comm="rdma" raises on
+    both once they claim two hosts; their
     DCP weight checkpoint loads whole equal to one process's; phase 32's
     sharded smoother over the 2 x 4 shards, both kinds, from blocks and
     from whole tensors, bit for bit phase 32's (K2 x 8, K3 x 16 a
     process), a step timed between barriers; a child's
-    NCCL world of one (process_info, mesh, both analyses as phase 26's);
+    NCCL world of one (process_info, mesh, both analyses as phase 26's;
+    by default the mesh and process_info keep every card it sees);
     the native obs loader (built, repaired) feeds 6 config-3 files at
     depth 3 through the window analysis, and a child makes 200 passes;
     each child under a hard time limit; times of 2 processes and of 1
@@ -621,21 +627,22 @@ def median_ms(fn, reps=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def device_profile(fn, calls=5):
+def device_profile(fn, calls=5, retakes=2):
     """One torch.profiler window (CUDA activity) over ``calls`` calls of
     ``fn`` after a warm-up call: ``(wall ms per call, device ms per call,
     [(kernel, device ms per call, launches recorded), ...] largest
     first)``. The device time is the sum of the kernels' own times, so 1 -
     device / wall is the device's idle share in the window. A window that
     records no device activity at all (torch.profiler has returned one
-    after many others) is taken again, up to twice; one that records fewer
-    launches than were made (it has, late in a long run) shows in the
-    counts."""
+    after many others) is taken again, up to ``retakes`` times (0 where
+    ``fn`` is a collective of several processes, which must call it
+    alike); one that records fewer launches than were made (it has, late
+    in a long run) shows in the counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(1 + retakes):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
@@ -2804,8 +2811,8 @@ def halo_phases(dev, gpu, kinds, launches):
     notes.append(f"K6 over the 8 tiles of config 7 {k6_ms!r} ms of device "
                  f"time per call")
     log(27, "torch.profiler, 5 calls each: " + "; ".join(notes) + f" [{gpu}]")
-    return {"window": out_w, "pallas": out_p, "window_fn": window3,
-            "pallas_fn": ppermute3, "args": args3}
+    return {"window": out_w, "pallas": out_p, "rdma": out_r,
+            "window_fn": window3, "pallas_fn": ppermute3, "args": args3}
 
 
 # -- 32. the grid-sharded localized IEnKS -------------------------------------
@@ -3000,27 +3007,44 @@ def synced_ms(fn, args, reps=10):
     return statistics.median(times)
 
 
+def copies_and(keys, fn, args):
+    """The copies and the kernels named by ``keys`` in one torch.profiler
+    window over one call of ``fn(*args)``, a collective of every process
+    (``device_profile`` without a retake): ``{name: (ms, count)}``."""
+    _, _, rows = device_profile(lambda: fn(*args), calls=1, retakes=0)
+    return {name: (ms, n) for name, ms, n in rows
+            if "Memcpy" in name or any(key in name for key in keys)}
+
+
+def in_turns(fns, args, reps=10):
+    """``synced_ms`` of each of ``fns`` (name -> function) in turns, first
+    to last and back: name -> the two medians."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(synced_ms(fns[name], args, reps))
+    return times
+
+
 def phase30_worker(rank, port, out):
     """Rank ``rank`` of two processes (gloo) that share the card, 4
     virtual shards each: the config-3 halo analyses (window through K1,
-    top-k through K4, ppermute) from this process's blocks and from whole
-    tensors, with the launches of each; comm="rdma" raising; the
-    grid-sharded weights saved by DCP; results and times to ``out``."""
+    top-k through K4, ppermute and rdma through K8 over CUDA IPC) from
+    this process's blocks and from whole tensors, with the launches of
+    each; a profiler window of each top-k exchange's copies; the rdma and
+    ppermute calls and exchanges (config 3, [103, 8192] x 8) timed in
+    turns; the grid-sharded weights saved by DCP; comm="rdma" raising once
+    the two processes claim two hosts; results and times to ``out``."""
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize_multihost(f"tcp://localhost:{port}", 2, rank,
                                    timeout=GROUP_TIMEOUT)
     report = {"backend": torch.distributed.get_backend()}
     mesh = multihost.global_grid_mesh(devices=[dev] * 4)
-    check(mesh.owners.tolist() == [0] * 4 + [1] * 4, f"owners {mesh.owners}")
+    owners = mesh.owners.tolist()
+    check(owners == [0] * 4 + [1] * 4, f"owners {mesh.owners}")
     report["info"] = multihost.process_info(devices=[dev] * 4)
     w3, whole3, opts = config3()
     loc = GaspariCohn((RADIUS,), coord1_distance)
-    try:
-        halo_letkf_analysis(mesh, loc, use_pallas=True, comm="rdma", **opts)
-        report["rdma"] = None
-    except NotImplementedError as exc:
-        report["rdma"] = str(exc)
 
     def local(a, dim):
         a = torch.as_tensor(a)
@@ -3030,19 +3054,60 @@ def phase30_worker(rank, port, out):
     blocks = [multihost.host_local_to_global(mesh, local(a, d), axis=d)
               for a, d in zip(whole3, SPLIT3)]
     whole = [torch.as_tensor(a, device=dev) for a in whole3]
-    results = {}
+    results, fns = {}, {}
     for name, kw in (("window", dict(local_method="window")),
-                     ("pallas", dict(use_pallas=True))):
-        fn = halo_letkf_analysis(mesh, loc, **kw, **opts)
+                     ("pallas", dict(use_pallas=True)),
+                     ("rdma", dict(use_pallas=True, comm="rdma"))):
+        fn = fns[name] = halo_letkf_analysis(mesh, loc, **kw, **opts)
         got, report[name + "_launches"] = counted(fn, *blocks)
         check(isinstance(got, multihost.GlobalTensor)
               and sorted(got.blocks) == [(s,) for s in
                                          range(4 * rank, 4 * rank + 4)],
               f"{name}: this process's blocks are {sorted(got.blocks)}")
         results[name] = got.gather().cpu()
-        results[name + "_whole"] = fn(*whole).cpu()
-        report[name + "_ms"] = synced_ms(fn, blocks)
-        report[name + "_whole_ms"] = synced_ms(fn, whole)
+        got, report[name + "_whole_launches"] = counted(fn, *whole)
+        results[name + "_whole"] = got.cpu()
+        if name == "window":
+            report[name + "_ms"] = synced_ms(fn, blocks)
+            report[name + "_whole_ms"] = synced_ms(fn, whole)
+    for form in ("", "_whole"):
+        same_bits(results["rdma" + form].to(dev),
+                  results["pallas" + form].to(dev),
+                  f"rank {rank}: rdma{form} against ppermute{form}")
+    # the copies of each top-k call from blocks: K8 reads the other
+    # process's blocks through CUDA IPC, ppermute stages them (gloo)
+    for name in ("rdma", "pallas"):
+        report[name + "_window"] = copies_and(("halo_ring", "nbh_cheb"),
+                                              fns[name], blocks)
+    for name, times in in_turns({"pallas": fns["pallas"],
+                                 "rdma": fns["rdma"]}, blocks).items():
+        report[name + "_ms"] = times
+    for name, times in in_turns({"pallas": fns["pallas"],
+                                 "rdma": fns["rdma"]}, whole).items():
+        report[name + "_whole_ms"] = times
+    # the exchange alone, at config 3's blocks and at K8's bytes-bound
+    # shape, across the two processes
+    rng = np.random.RandomState(SEED + 300 + rank)
+    for label, (rows_, cols) in (("config3", (43, 128)),
+                                 ("big", (103, 8192))):
+        packed = [torch.as_tensor(rng.normal(size=(rows_, cols)),
+                                  dtype=torch.float32, device=dev)
+                  if r == rank else None for r in owners]
+        exchanges = {
+            "ppermute": lambda p: k8.ring_halo_plain(p, N_SHARDS, 1, owners),
+            "rdma": lambda p: k8.ring_halo_rdma(p, N_SHARDS, 1, owners)}
+        got, launches = counted(exchanges["rdma"], packed)
+        check(launches == {"halo_ring": 1},
+              f"rank {rank}: K8 {label} launches {launches}")
+        ref = exchanges["ppermute"](packed)
+        for s, (a, b) in enumerate(zip(got, ref)):
+            check((a is None) == (b is None)
+                  and (a is None or torch.equal(a, b)),
+                  f"rank {rank}: K8 {label} shard {s} differs from plain")
+        report[f"k8_{label}_window"] = copies_and(
+            ("halo_ring",), exchanges["rdma"], [packed])
+        for name, times in in_turns(exchanges, [packed]).items():
+            report[f"k8_{label}_{name}_ms"] = times
     # phase 32's sharded smoother over the two processes' 8 shards
     w9 = build_workload(40, 10000, 1000)
     nb9 = exact_nb(k1.max_in_support_1d(w9[5][:, 0], w9[4][:, 0], RADIUS))
@@ -3069,11 +3134,18 @@ def phase30_worker(rank, port, out):
         multihost.host_local_to_global(mesh, local(ginfo, 0), axis=0),
         oinfo, INF)
     save_weights_sharded(os.path.join(out, "weights"), weights)
+    # two processes that claim two hosts: CUDA IPC cannot reach across,
+    # so building the rdma analysis raises on both
+    socket.gethostname = lambda: f"node{rank}"
+    try:
+        halo_letkf_analysis(mesh, loc, use_pallas=True, comm="rdma", **opts)
+        report["hosts"] = None
+    except NotImplementedError as exc:
+        report["hosts"] = str(exc)
     torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    multihost.shutdown_multihost()
 
 
 def phase30_nccl(port, out):
@@ -3084,10 +3156,15 @@ def phase30_nccl(port, out):
     multihost.initialize_multihost(f"tcp://localhost:{port}", 1, 0,
                                    timeout=GROUP_TIMEOUT)
     mesh = multihost.global_grid_mesh(devices=[dev] * N_SHARDS)
+    # by default a group of one keeps every card it sees
+    own = multihost.global_grid_mesh()
     report = {"backend": torch.distributed.get_backend(),
               "info": multihost.process_info(devices=[dev] * N_SHARDS),
               "mesh": [mesh.size, mesh.owners is None,
-                       sorted({str(d) for d in mesh.devices.flat})]}
+                       sorted({str(d) for d in mesh.devices.flat})],
+              "default_mesh": [str(d) for d in own.devices.flat],
+              "default_info": multihost.process_info(),
+              "cards": torch.cuda.device_count()}
     w3, whole3, opts = config3()
     loc = GaspariCohn((RADIUS,), coord1_distance)
     whole = [torch.as_tensor(a, device=dev) for a in whole3]
@@ -3097,7 +3174,7 @@ def phase30_nccl(port, out):
     torch.save(results, os.path.join(out, "nccl.pt"))
     with open(os.path.join(out, "nccl.json"), "w") as f:
         json.dump(report, f)
-    torch.distributed.destroy_process_group()
+    multihost.shutdown_multihost()
 
 
 def obs_files(directory, w3):
@@ -3134,10 +3211,19 @@ def loader_passes(directory, passes):
     print(passes, flush=True)
 
 
+def window_note(rows):
+    """A profile's copies and kernels (name -> (ms, count)) in a line."""
+    return ", ".join(f"{k[:40]} {t!r} ms x{n}" for k, (t, n) in
+                     sorted(rows.items(), key=lambda kv: -kv[1][0]))
+
+
 def multiprocess_phase(dev, gpu, ref26, ref32):
     """Phase 30: the config-3 halo analyses across two processes that
     share the card (gloo, 4 virtual shards each) against phase 26's
-    one-process analyses, bit for bit; comm="rdma" raising across them;
+    one-process analyses, bit for bit, comm="rdma" through K8 over CUDA
+    IPC among them (no block through the host, 1 launch a process);
+    K8's exchange alone across them at config 3 and [103, 8192] x 8;
+    comm="rdma" raising once the processes claim two hosts;
     phase 32's grid-sharded smoother over the two processes, from blocks
     and from whole tensors, against ``ref32`` bit for bit; a world of one
     process over NCCL; the obs-ingest loader feeding the halo analysis,
@@ -3200,16 +3286,33 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
             check(rep["info"] == {"process_index": r, "process_count": 2,
                                   "local_devices": 4, "global_devices": 8},
                   f"rank {r}: process_info {rep['info']}")
-            check(rep["rdma"] is not None and "peer pointers" in rep["rdma"],
-                  f"rank {r}: comm='rdma' across processes did not raise")
-            check(rep["window_launches"] == {"window1d": 4},
-                  f"rank {r}: window launches {rep['window_launches']}")
-            check(rep["pallas_launches"] == {"nbh_cheb": 4},
-                  f"rank {r}: top-k launches {rep['pallas_launches']}")
-            for name in ("window", "pallas"):
+            check(rep["hosts"] is not None and "CUDA IPC" in rep["hosts"],
+                  f"rank {r}: comm='rdma' across two hosts did not raise")
+            for name, want in (("window", {"window1d": 4}),
+                               ("pallas", {"nbh_cheb": 4}),
+                               ("rdma", {"halo_ring": 1, "nbh_cheb": 4})):
                 for form in ("", "_whole"):
+                    got = rep[f"{name}{form}_launches"]
+                    check(got == want, f"rank {r}: {name}{form} launches "
+                          f"{got}")
                     same_bits(res[name + form].to(dev), ref26[name],
                               f"rank {r} {name}{form} against phase 26")
+            same_bits(res["rdma"].to(dev), res["pallas"].to(dev),
+                      f"rank {r} rdma against this run's ppermute")
+            # the rdma call copies no block to the host, K8 ran in the
+            # window; the ppermute call stages its blocks (gloo)
+            win = rep["rdma_window"]
+            dtoh = {k: v for k, v in win.items() if "DtoH" in k}
+            check(not dtoh and any("halo_ring" in k for k in win),
+                  f"rank {r}: the rdma call's profile {win}")
+            check(any("DtoH" in k for k in rep["pallas_window"]),
+                  f"rank {r}: the ppermute call's profile shows no "
+                  f"device-to-host copy: {rep['pallas_window']}")
+            for label in ("config3", "big"):
+                win = rep[f"k8_{label}_window"]
+                check(not any("DtoH" in k for k in win)
+                      and any("halo_ring" in k for k in win),
+                      f"rank {r}: the K8 {label} exchange's profile {win}")
             for kind in ("transform", "bundle"):
                 for form in ("", "_whole"):
                     check(rep[f"lienks_{kind}{form}_launches"]
@@ -3229,6 +3332,13 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
               f"nccl: process_info {rep_nccl['info']}")
         check(rep_nccl["mesh"] == [N_SHARDS, True, ["cuda:0"]],
               f"nccl: mesh {rep_nccl['mesh']}")
+        cards = rep_nccl["cards"]
+        check(rep_nccl["default_mesh"] == [f"cuda:{i}" for i in range(cards)]
+              and rep_nccl["default_info"] == {
+                  "process_index": 0, "process_count": 1,
+                  "local_devices": cards, "global_devices": cards},
+              f"nccl: a group of one by default {rep_nccl['default_mesh']} "
+              f"{rep_nccl['default_info']}")
         for name in ("window", "pallas"):
             same_bits(res[name].to(dev), ref26[name],
                       f"nccl {name} against phase 26")
@@ -3243,14 +3353,37 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
                               reps=10, inner=3)
               for name in ("window", "pallas")}
     for name, label in (("window", "window (K1)"),
-                        ("pallas", "top-k use_pallas ppermute (K4)")):
+                        ("pallas", "top-k use_pallas ppermute (K4)"),
+                        ("rdma", "top-k use_pallas rdma (K8 + K4)")):
         notes.append(
             f"{label}: 2 processes {reports[0][name + '_ms']!r} ms a call "
             f"from blocks, {reports[0][name + '_whole_ms']!r} ms from whole "
-            f"tensors (between barriers), 1 process "
-            f"{ms_one[name]!r} ms; launches rank 0 "
-            f"{reports[0][name + '_launches']}, rank 1 "
+            f"tensors (between barriers; ppermute and rdma in turns, two "
+            f"medians each), 1 process "
+            f"{ms_one['pallas' if name == 'rdma' else name]!r} ms; launches "
+            f"rank 0 {reports[0][name + '_launches']}, rank 1 "
             f"{reports[1][name + '_launches']}")
+    for name in ("rdma", "pallas"):
+        notes.append(f"profile of one {name} call from blocks, rank 0: "
+                     + window_note(reports[0][name + "_window"]))
+    for label, shape, (rows_, cols) in (("config3", "config 3", (43, 128)),
+                                        ("big", "[103, 8192] x 8",
+                                         (103, 8192))):
+        win = reports[0][f"k8_{label}_window"]
+        ms, ms1 = (sum(t for k, (t, _) in rep[f"k8_{label}_window"].items()
+                       if "halo_ring" in k) for rep in reports)
+        # this process's launch: its 4 blocks and the other process's 2
+        # halo blocks read once, its 4 outputs of 3 blocks written
+        block = rows_ * cols * 4
+        b = bound((4 + 2 + 4 * 3) * block, 0)
+        notes.append(
+            f"K8 exchange across the 2 processes at {shape}, halo 1, a "
+            f"process: K8 device time {ms!r} ms against its bound "
+            f"{b[0]!r} ms ({(4 + 2 + 4 * 3) * block} bytes), profile "
+            f"{window_note(win)}; per call between barriers, in turns, "
+            f"rdma {reports[0][f'k8_{label}_rdma_ms']!r} ms, ppermute "
+            f"{reports[0][f'k8_{label}_ppermute_ms']!r} ms; rank 1 K8 "
+            f"{ms1!r} ms")
     notes.append(
         f"the sharded smoother (config 9, transform): 2 processes "
         f"{reports[0]['lienks_ms']!r} ms a step from blocks, "
@@ -3262,10 +3395,14 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
     log(30, f"config 3 (ens 40, grid {G3}, obs {O3}, GC r={RADIUS}, nb "
         f"{opts['max_obs']}, halo {opts['halo_width']}, degree {DEGREE}) "
         "across 2 processes (gloo, 4 virtual shards of the card each): "
-        "window and top-k, from blocks and from whole tensors, equal to "
-        "phase 26 bit for bit on both ranks; comm='rdma' raises; NCCL world "
-        f"of 1: process_info {rep_nccl['info']}, both analyses equal to "
-        f"phase 26; loader: 6 files at depth 3 into the window analysis in "
+        "window, top-k ppermute and top-k rdma (K8 over CUDA IPC), from "
+        "blocks and from whole tensors, equal to phase 26 bit for bit on "
+        "both ranks, rdma to ppermute; no device-to-host copy in the rdma "
+        "call; comm='rdma' raises on both ranks once they claim two hosts; "
+        f"NCCL world of 1: process_info {rep_nccl['info']}, both analyses "
+        f"equal to phase 26, by default its {rep_nccl['cards']} card(s) "
+        f"{rep_nccl['default_mesh']}; loader: 6 files at depth 3 into the "
+        f"window analysis in "
         f"{s_ingest:.2f} s (batch 0 equal to phase 26, each batch to its "
         f"file's sharding), {LOADER_PASSES} passes in a child, each in "
         f"order and exact; native runtime built; DCP weights of 2 processes "

@@ -171,6 +171,7 @@ def main(argv=None):
         rows.append(row)
         if multihost.process_index() == 0:
             print(json.dumps(row), flush=True)
+    multihost.shutdown_multihost()
     return rows
 
 

@@ -6,7 +6,8 @@ the JAX package and against the port in one process.
   (``process_info``, ``global_grid_mesh``, ``host_local_to_global``, the
   no-op ``initialize_multihost``); GlobalTensor inputs give the halo and
   grid-sharded analyses the whole-tensor results bit for bit;
-  ``comm="rdma"`` on a mesh that spans processes raises.
+  ``comm="rdma"`` on a mesh whose processes sit on two hosts (names
+  faked) raises, on one host it builds.
 - Two processes (gloo on the CPU, 4 shards of ``"cpu"`` each), started by
   subprocess: the windowed, top-k eigh, ``use_pallas`` (K4's plain
   version) and 2-D halo analyses and ``sharded_letkf_analysis``, from
@@ -15,14 +16,21 @@ the JAX package and against the port in one process.
   equal JAX's on its 8 virtual CPU devices within 1e-10, the f32 kernel
   routes within 1e-5 of max|ref| (their tolerance in
   tests/test_torch_halo.py); the sharded weight checkpoint (DCP) written
-  by both processes loads whole and by mesh; the grid-sharded localized
+  by both processes loads whole and by mesh; the top-k analyses with
+  ``comm="rdma"`` (eigh, ``use_pallas``) on inputs of their own, from
+  whole tensors and from blocks, bit for bit ``"ppermute"``'s and the
+  one-process analysis, within 1e-10 / 1e-5 of max of JAX's 8-device
+  ``comm="rdma"`` analysis, and raising on both ranks once they claim two
+  hosts; the grid-sharded localized
   IEnKS step (both kinds, JAX's case of tests/test_parallel.py) from whole
   tensors and from blocks, bit for bit the one-process 8-shard step and
   within 1e-10 of JAX's auto-partitioned step; a strict-window violation
   raises on both ranks and neither hangs.
 - Every run of two processes has a process-group timeout of 60 s and a
   join limit of 120 s, after which the children are killed and the test
-  fails.
+  fails. The test process holds the group's store (the children join it
+  as torchrun's agent store), and every child ends through
+  ``shutdown_multihost`` (a barrier, then the group destroyed).
 """
 
 import json
@@ -119,6 +127,13 @@ def inputs(seed=7):
     k, l, g = 10, 24, 64
     rng_s = np.random.RandomState(seed + 1)
     obs_s = np.arange(0, g, 2, dtype=np.int32)
+    # comm="rdma": the 1-D workload drawn again from a stream of its own
+    rng_r = np.random.RandomState(seed + 2)
+    state_r = rng_r.normal(size=(10, 128))
+    idx_r = np.sort(rng_r.choice(128, size=48, replace=False))
+    sh_r = th.shard_observations(rng_r.normal(size=48),
+                                 rng_r.uniform(0.3, 1.5, 48), idx_r,
+                                 grid[idx_r], 128, 8)
     return {
         "state": state, "vals": sh[0], "var": sh[1], "lidx": sh[2],
         "ocoords": sh[3], "valid": sh[4], "grid": grid,
@@ -135,6 +150,9 @@ def inputs(seed=7):
         "s_vals": rng_s.normal(size=g // 2), "s_var": np.full(g // 2, 0.5),
         "s_idx": obs_s, "s_grid": np.arange(g, dtype=np.float64)[:, None],
         "s_ocoords": obs_s.astype(np.float64)[:, None],
+        "r_state": state_r, "r_vals": sh_r[0], "r_var": sh_r[1],
+        "r_lidx": sh_r[2], "r_ocoords": sh_r[3], "r_valid": sh_r[4],
+        "r_grid": grid,
     }
 
 
@@ -145,6 +163,11 @@ SMOOTHER_OPTS = dict(n_outer=2, tau=0.8, max_obs=18, selection="window")
 def args1(w):
     return [w[n] for n in ("state", "vals", "var", "lidx", "ocoords",
                            "valid", "grid")]
+
+
+def args_rdma(w):
+    return [w["r_" + n] for n in ("state", "vals", "var", "lidx", "ocoords",
+                                  "valid", "grid")]
 
 
 def args2(w):
@@ -172,8 +195,17 @@ ANALYSES = {
                             inf_factor=1.1, use_pallas=True), 2),
 }
 
+# The top-k analyses each process also runs with comm="rdma" (K8's route
+# across processes; on the CPU the plain exchange), and with "ppermute", on
+# the rdma inputs.
+RDMA = {
+    "topk_eigh": dict(max_obs=32, halo_width=1, inf_factor=1.1),
+    "pallas": dict(max_obs=32, halo_width=2, inf_factor=1.1,
+                   use_pallas=True, cheb_degree=12),
+}
+
 WORKER = textwrap.dedent("""
-    import ast, json, os, sys
+    import ast, json, os, socket, sys
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -189,6 +221,14 @@ WORKER = textwrap.dedent("""
     from tpu_assim_torch.parallel import multihost as mh
     from tpu_assim_torch.parallel.mesh import Mesh
     from tpu_assim_torch.utils import checkpoint as ckpt
+
+    def finish():
+        # every rank past its last collective before either tears the group
+        # down: a rank that exits with its group alive may abort there
+        # (std::terminate) while the other still talks to it
+        mh.shutdown_multihost()
+        sys.exit(0)
+
     if mode in ("strict", "cards"):
         # torchrun's env:// variables, set by the test
         mh.initialize_multihost(timeout=float(sys.argv[6]))
@@ -205,8 +245,8 @@ WORKER = textwrap.dedent("""
             json.dump({"devices": [str(d) for d in own.devices],
                        "owners": own.owners.tolist(),
                        "info": mh.process_info()}, f)
-        sys.exit(0)
-    spec = ast.literal_eval(sys.argv[7])
+        finish()
+    spec, rdma = ast.literal_eval(sys.argv[7])
     w = dict(np.load(os.path.join(out, "inputs.npz")))
     t = {n: torch.from_numpy(a) for n, a in w.items()}
     mesh = mh.global_grid_mesh(devices=["cpu"] * 4)
@@ -220,6 +260,8 @@ WORKER = textwrap.dedent("""
                           "valid", "grid")]
     two = [t[n] for n in ("state2", "vals2", "var2", "lidx2", "ocoords2",
                           "valid2", "grid2")]
+    r_one = [t["r_" + n] for n in ("state", "vals", "var", "lidx",
+                                   "ocoords", "valid", "grid")]
     local = lambda a, dim: a.narrow(dim, rank * a.shape[dim] // 2,
                                     a.shape[dim] // 2)
     res = {}
@@ -236,7 +278,7 @@ WORKER = textwrap.dedent("""
                 res[label] = "raised: " + str(exc)
         with open(os.path.join(out, f"strict{rank}.json"), "w") as f:
             json.dump(res, f)
-        sys.exit(0)
+        finish()
     info = mh.process_info(devices=["cpu"] * 4)
     assert info == {"process_index": rank, "process_count": 2,
                     "local_devices": 4, "global_devices": 8}, info
@@ -258,6 +300,14 @@ WORKER = textwrap.dedent("""
         assert sorted(glob.blocks) == sorted(
             k for k in glob.keys() if glob.owner(k) == rank), glob
         res[name + "_global"] = glob.gather()
+    for name, opts in rdma.items():
+        for comm in ("rdma", "ppermute"):
+            fn = th.halo_letkf_analysis(mesh, loc, comm=comm, **opts)
+            key = f"{comm}_{name}"
+            res[key] = fn(*r_one)
+            res[key + "_global"] = fn(*[
+                mh.host_local_to_global(mesh, local(a, d), axis=d)
+                for a, d in zip(r_one, (1, 0, 0, 0, 0, 0, 0))]).gather()
     sh = (mesh, loc, t["data"], t["perts"], t["innov"])
     res["sharded"] = tpl.sharded_letkf_analysis(*sh, t["ginfo"], t["oinfo"],
                                                 1.1)
@@ -289,32 +339,43 @@ WORKER = textwrap.dedent("""
                                      mesh=mesh)
     res["weights"] = weights.gather()
     res["weights_by_mesh"] = back.gather()
+    # two processes that claim two hosts: CUDA IPC cannot reach across
+    socket.gethostname = lambda: f"node{rank}"
+    try:
+        th.halo_letkf_analysis(mesh, loc, comm="rdma", **rdma["pallas"])
+        hosts = "built"
+    except NotImplementedError as exc:
+        hosts = "raised: " + str(exc)
+    with open(os.path.join(out, f"hosts{rank}.json"), "w") as f:
+        json.dump(hosts, f)
     np.savez(os.path.join(out, f"rank{rank}.npz"),
              **{n: v.numpy() for n, v in res.items()})
-    torch.distributed.destroy_process_group()
+    finish()
 """)
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def run_two(out, mode, spec=None, command=None):
     """Runs WORKER (or ``command``) as ranks 0 and 1 on the CPU, with
     torchrun's env:// variables set; kills both and fails when they
-    outlive JOIN_LIMIT. Returns their standard outputs."""
-    port = str(free_port())
+    outlive JOIN_LIMIT. Returns their standard outputs.
+
+    This process holds the group's store on a port that the kernel picks
+    and keeps, and the children join it as clients, as torchrun's agent
+    store has them do: no port is picked, freed and bound again, which
+    anything else on the machine could take in between."""
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True,
+                                       wait_for_workers=False)
+    port = str(store.port)
     procs = []
     for rank in (0, 1):
         env = dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="localhost",
                    MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   TORCHELASTIC_USE_AGENT_STORE="True")
         procs.append(subprocess.Popen(
             command or [sys.executable, "-c", WORKER, str(rank), port,
                         str(out), mode, REPO, str(GROUP_TIMEOUT),
-                        repr(spec or {})],
+                        repr(spec or ({}, {}))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env))
     try:
@@ -336,7 +397,7 @@ def two_process(tmp_path_factory):
     out = tmp_path_factory.mktemp("multihost")
     w = inputs()
     np.savez(out / "inputs.npz", **w)
-    run_two(out, "analyses", ANALYSES)
+    run_two(out, "analyses", (ANALYSES, RDMA))
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in (0, 1)]
     return w, ranks, out
 
@@ -420,11 +481,33 @@ def test_global_inputs_equal_whole_in_one_process(name):
     assert torch.equal(out.gather(), whole)
 
 
-def test_rdma_on_a_mesh_across_processes_raises():
+def test_rdma_on_a_mesh_across_processes_raises(monkeypatch):
+    """comm="rdma" reaches the other processes through CUDA IPC, on one
+    host only: a mesh whose owners sit on two hosts (the names faked)
+    raises when the top-k analysis is built."""
     mesh = Mesh(CPU8, ("grid",), owners=[0] * 4 + [1] * 4)
-    with pytest.raises(NotImplementedError, match="peer pointers"):
+    monkeypatch.setattr(th, "process_hosts", lambda: ["node-a", "node-b"])
+    with pytest.raises(NotImplementedError, match="CUDA IPC"):
         th.halo_letkf_analysis(mesh, GaspariCohn((RADIUS,), coord1_distance),
                                max_obs=32, use_pallas=True, comm="rdma")
+
+
+@pytest.mark.parametrize("local_method", ["topk", "window"])
+def test_rdma_across_processes_of_one_host_builds(monkeypatch, local_method):
+    """On one host the rdma analysis builds over processes; the window
+    path exchanges by copies and never asks for the hosts."""
+    mesh = Mesh(CPU8, ("grid",), owners=[0] * 4 + [1] * 4)
+    hosts = ["node-a", "node-a" if local_method == "topk" else "node-b"]
+    monkeypatch.setattr(th, "process_hosts", lambda: hosts)
+    assert callable(th.halo_letkf_analysis(
+        mesh, GaspariCohn((RADIUS,), coord1_distance), max_obs=32,
+        comm="rdma", local_method=local_method, cheb_degree=12))
+
+
+def test_process_hosts_and_shutdown_single_process():
+    assert mh.process_hosts() == [socket.gethostname()]
+    mh.shutdown_multihost()
+    assert not torch.distributed.is_initialized()
 
 
 def test_exchange_blocks_in_one_process_copies(rng):
@@ -511,6 +594,58 @@ def test_two_processes_match_jax(two_process, cheb_interpret, name):
         close(ranks[0][name], ref)
     else:
         rel_close(ranks[0][name], ref)
+
+
+def one_process_rdma(w, name, comm="rdma"):
+    """The port's one-process 8-shard analysis of RDMA[name] on the rdma
+    inputs."""
+    t = [torch.from_numpy(a) for a in args_rdma(w)]
+    return th.halo_letkf_analysis(
+        make_grid_mesh(8, devices=CPU8),
+        GaspariCohn((RADIUS,), coord1_distance), comm=comm,
+        **RDMA[name])(*t).numpy()
+
+
+@pytest.mark.parametrize("form", ["", "_global"])
+@pytest.mark.parametrize("name", sorted(RDMA))
+def test_two_processes_rdma_equals_ppermute(two_process, name, form):
+    """comm="rdma" across the two processes, from whole tensors and from
+    blocks: bit for bit the same process's comm="ppermute" result and the
+    one-process analysis."""
+    w, ranks, _ = two_process
+    ref = one_process_rdma(w, name)
+    np.testing.assert_array_equal(ref, one_process_rdma(w, name, "ppermute"))
+    for res in ranks:
+        np.testing.assert_array_equal(res[f"rdma_{name}{form}"],
+                                      res[f"ppermute_{name}{form}"])
+        np.testing.assert_array_equal(res[f"rdma_{name}{form}"], ref)
+
+
+@pytest.mark.parametrize("name", sorted(RDMA))
+def test_two_processes_rdma_match_jax(two_process, cheb_interpret, name):
+    """Against JAX's comm="rdma" analysis on its 8 virtual CPU devices
+    (tests/test_halo.py's case): eigh within 1e-10, the f32 K4 route within
+    1e-5 of max."""
+    w, ranks, _ = two_process
+    ref = np.asarray(jh.halo_letkf_analysis(
+        jax_grid_mesh(8), JGaspariCohn((RADIUS,), jax_coord1), comm="rdma",
+        **RDMA[name])(*map(jnp.asarray, args_rdma(w))))
+    for res in ranks:
+        if name == "topk_eigh":
+            close(res[f"rdma_{name}"], ref)
+        else:
+            rel_close(res[f"rdma_{name}"], ref)
+
+
+def test_rdma_across_two_hosts_raises_on_both_ranks(two_process):
+    """Once the two processes claim two hosts, building the rdma analysis
+    raises NotImplementedError on both (the host names meet in an
+    all_gather), and neither hangs."""
+    _, _, out = two_process
+    for rank in (0, 1):
+        said = json.loads((out / f"hosts{rank}.json").read_text())
+        assert said.startswith("raised: ") and "CUDA IPC" in said, said
+        assert "node0" in said and "node1" in said, said
 
 
 @pytest.mark.parametrize("form", ["", "_global"])

@@ -6,10 +6,12 @@
 // body `kern`), which signals a barrier semaphore on its halo partners and
 // then starts one remote DMA per distinct ring offset into the partners'
 // VMEM. Here each shard's output is written by the device that holds the
-// shard, reading the sources where they lie: on the same device, or on a
-// peer device through its pointer (peer access enabled by the wrapper).
-// Stream order on one device, and events across devices (the wrapper),
-// take the place of the barrier.
+// shard, reading the sources where they lie: on the same device, on a peer
+// device through its pointer (peer access enabled by the wrapper), or in
+// another process's exchange buffer through a CUDA IPC mapping (the
+// functions at the end of this file). Stream order on one device, events
+// across devices, and interprocess events with a host rendezvous across
+// processes (the wrapper) take the place of the barrier semaphore.
 //
 // What it computes, for each local shard s and slot j in 0..n_slots-1
 // (offset[0] = 0, then the distinct ring offsets):
@@ -34,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -150,6 +153,101 @@ int halo_ring_enable_peer(int device, int peer) {
 
 const char* halo_ring_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// -- CUDA IPC: the exchange across processes of one node --------------------
+//
+// Each process copies its own shards' blocks into an exchange buffer of its
+// own, allocated here with cudaMalloc (a block of torch's caching
+// allocator would export its whole segment, and expandable segments cannot
+// be exported at all), and exports the buffer's handle. The other
+// processes open it once and pass the mapped slots to halo_ring_launch as
+// source pointers, beside their own blocks. Interprocess events order the
+// writes and the reads (the wrapper, parallel/cuda_halo.py). Every function
+// runs on the current device and returns its cudaError_t (0 on success).
+
+int halo_ipc_handle_size() { return CUDA_IPC_HANDLE_SIZE; }
+
+int halo_ipc_alloc(void** ptr, long long bytes) {
+  return static_cast<int>(cudaMalloc(ptr, static_cast<size_t>(bytes)));
+}
+
+int halo_ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+// The handle of an allocation of halo_ipc_alloc, CUDA_IPC_HANDLE_SIZE bytes.
+int halo_ipc_mem_handle(void* ptr, void* handle) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t err = cudaIpcGetMemHandle(&h, ptr);
+  if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return static_cast<int>(err);
+}
+
+// Maps another process's allocation into this device's address space. On
+// another card the mapping reads through peer access, enabled lazily.
+int halo_ipc_open_mem(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int halo_ipc_close_mem(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+int halo_ipc_event_create(void** event) {
+  cudaEvent_t e;
+  const cudaError_t err = cudaEventCreateWithFlags(
+      &e, cudaEventInterprocess | cudaEventDisableTiming);
+  *event = e;
+  return static_cast<int>(err);
+}
+
+int halo_ipc_event_handle(void* event, void* handle) {
+  cudaIpcEventHandle_t h;
+  const cudaError_t err =
+      cudaIpcGetEventHandle(&h, static_cast<cudaEvent_t>(event));
+  if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return static_cast<int>(err);
+}
+
+int halo_ipc_open_event(const void* handle, void** event) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaEvent_t e;
+  const cudaError_t err = cudaIpcOpenEventHandle(&e, h);
+  *event = e;
+  return static_cast<int>(err);
+}
+
+// Destroys an event of this process or one opened from another's handle.
+int halo_ipc_event_destroy(void* event) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(event)));
+}
+
+int halo_ipc_record(void* event, void* stream) {
+  return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event),
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// The stream waits for the last record of the event made before this call.
+int halo_ipc_wait(void* stream, void* event) {
+  return static_cast<int>(cudaStreamWaitEvent(
+      static_cast<cudaStream_t>(stream), static_cast<cudaEvent_t>(event), 0));
+}
+
+// Copies n blocks of `bytes` each, src[i], to dst + i * stride on the
+// stream (device to device).
+int halo_ipc_put(void* dst, const void* const* src, int n, long long bytes,
+                 long long stride, void* stream) {
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t err = cudaMemcpyAsync(
+        static_cast<char*>(dst) + i * stride, src[i],
+        static_cast<size_t>(bytes), cudaMemcpyDeviceToDevice,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // extern "C"

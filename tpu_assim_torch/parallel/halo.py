@@ -28,7 +28,8 @@ device of the input state.
 
 On a mesh that spans processes (:mod:`tpu_assim_torch.parallel.multihost`)
 each process runs (A) and (C) for its own positions only, and (B) takes
-the other processes' blocks by ``torch.distributed`` transfers. The
+the other processes' blocks by ``torch.distributed`` transfers
+(``"ppermute"``) or through CUDA IPC on one host (``"rdma"``). The
 analysis then takes either the whole tensors, which every process holds,
 and returns the whole analysis on every process, or
 :class:`~tpu_assim_torch.parallel.multihost.GlobalTensor` inputs (from
@@ -73,6 +74,7 @@ from tpu_assim_torch.parallel.multihost import (
     all_blocks,
     exchange_blocks,
     max_across_processes,
+    process_hosts,
     process_index,
 )
 
@@ -90,9 +92,10 @@ logger = logging.getLogger(__name__)
 _BIG = float(np.finfo(np.float32).max)
 
 RDMA_ACROSS_PROCESSES = (
-    "comm='rdma' (kernel K8) reads the other shards' blocks through peer "
-    "pointers, which reach only the devices of its own process; on a mesh "
-    "that spans processes exchange with comm='ppermute'")
+    "comm='rdma' (kernel K8) reads the other processes' blocks through CUDA "
+    "IPC, which reaches only the processes of one host, and GPUDirect RDMA "
+    "or NVSHMEM, which would reach the others, is not installed; on a mesh "
+    "whose processes sit on several hosts exchange with comm='ppermute'")
 
 
 def _numpy(a) -> np.ndarray:
@@ -510,11 +513,17 @@ def halo_letkf_analysis(
     :func:`tpu_assim.parallel.halo.halo_letkf_analysis`, in its order).
 
     ``comm``: ``"ppermute"`` — the halo exchange by copies
-    (:func:`~tpu_assim_torch.parallel.cuda_halo.ring_halo_plain`);
-    ``"rdma"`` — kernel K8
-    (:func:`~tpu_assim_torch.parallel.cuda_halo.ring_halo_rdma`): one
-    launch per device for all of its shards, the same blocks bit for bit.
-    The window path exchanges by copies either way, as in JAX.
+    (:func:`~tpu_assim_torch.parallel.cuda_halo.ring_halo_plain`; another
+    process's blocks by ``torch.distributed`` transfers); ``"rdma"`` —
+    kernel K8 (:func:`~tpu_assim_torch.parallel.cuda_halo.ring_halo_rdma`):
+    one launch per device for all of its shards, another process's blocks
+    read through CUDA IPC, the same blocks bit for bit. On a mesh that
+    spans processes, building the top-k analysis with ``"rdma"`` gathers
+    the processes' host names (a collective) and raises
+    ``NotImplementedError`` when they sit on several hosts; every process
+    ends with :func:`~tpu_assim_torch.parallel.multihost.shutdown_multihost`,
+    which frees K8's exchange buffers in order. The window path exchanges
+    by copies either way, as in JAX.
 
     ``cheb_degree``: Chebyshev degree of the kernel solves (``use_pallas``,
     ``local_method="window"``); ``None`` measures the spectral bound of each
@@ -559,7 +568,10 @@ def halo_letkf_analysis(
     if comm not in ("ppermute", "rdma"):
         raise ValueError(f"comm must be 'ppermute' or 'rdma', got {comm!r}")
     if comm == "rdma" and owners is not None and local_method == "topk":
-        raise NotImplementedError(RDMA_ACROSS_PROCESSES)
+        hosts = process_hosts()
+        on = sorted({hosts[r] for r in set(owners)})
+        if len(on) > 1:
+            raise NotImplementedError(f"{RDMA_ACROSS_PROCESSES} (hosts {on})")
     if local_method == "window":
         radii, taper, eps = _window_params(localization, 1)
         if radii.size != 1:
@@ -664,7 +676,7 @@ def halo_letkf_analysis(
             cands = _ring_halo_sorted(packed, k + 1, n_shards, halo_width,
                                       owners)
         elif comm == "rdma":
-            cands = ring_halo_rdma(packed, n_shards, halo_width)
+            cands = ring_halo_rdma(packed, n_shards, halo_width, owners)
         else:
             cands = ring_halo_plain(packed, n_shards, halo_width, owners)
         # (C) solve and apply

@@ -16,6 +16,7 @@ blocks with the other processes point to point. There is no scheduler.
     state = host_local_to_global(mesh, local_state_block)   # [k, g_global]
     analyse = halo_letkf_analysis(mesh, loc, ...)           # parallel/halo.py
     analysis = analyse(state, *sharded_obs)    # this process's blocks
+    shutdown_multihost()                       # on every process, at the end
 
 Launch it with ``torchrun --nproc-per-node N script.py``, or start the
 processes yourself and name the group:
@@ -29,6 +30,7 @@ NCCL.
 
 import datetime
 import os
+import socket
 from typing import Optional
 from urllib.parse import urlparse
 
@@ -47,8 +49,10 @@ __all__ = [
     "initialize_multihost",
     "max_across_processes",
     "process_count",
+    "process_hosts",
     "process_index",
     "process_info",
+    "shutdown_multihost",
 ]
 
 
@@ -135,6 +139,23 @@ def initialize_multihost(
                             rank=rank, **kwargs)
 
 
+def shutdown_multihost() -> None:
+    """The end of a run of several processes, on every process (the
+    counterpart of ``jax.distributed.shutdown``): K8's exchange buffers
+    unmapped and freed
+    (:func:`tpu_assim_torch.parallel.cuda_halo.release_exchanges`), a
+    barrier, and the process group destroyed. A process that exits with
+    its group alive may abort in the group's teardown (std::terminate)
+    while another process still talks to it. A no-op without a group."""
+    if not _initialized():
+        return
+    from tpu_assim_torch.parallel.cuda_halo import release_exchanges
+
+    release_exchanges()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def _comm_device() -> torch.device:
     """Where this process's collectives take their tensors."""
     if _initialized() and dist.get_backend() == "nccl":
@@ -174,6 +195,17 @@ def process_info(devices=None) -> dict:
             "process_count": process_count(),
             "local_devices": n_local,
             "global_devices": n_global}
+
+
+def process_hosts() -> list:
+    """Each process's host name, by rank: a collective over every process
+    (this host's name alone without a group)."""
+    name = socket.gethostname()
+    if process_count() == 1:
+        return [name]
+    names = [None] * process_count()
+    dist.all_gather_object(names, name)
+    return names
 
 
 def global_grid_mesh(devices=None, axis_name: str = GRID_AXIS) -> Mesh:
