@@ -1,7 +1,9 @@
 """
 Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the cycled
-Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the localized
+Lorenz-96 LETKF (fused RK4 forecast + fused1d analysis), the driver entry
+points (tpu_assim_torch.entry) and the cycle sharded over members x grid
+on 8 virtual shards of the card and across two processes, the localized
 IEnKS smoother (Jacobi SVD + fused RK4) as a step, grid-sharded over 8
 virtual shards of the card and across two processes, and through its class
 API, with its gradient through both kernels, the neighborhood solvers (cheb,
@@ -89,7 +91,11 @@ Phases (one line each; any failure exits non-zero):
     DCP weight checkpoint loads whole equal to one process's; phase 32's
     sharded smoother over the 2 x 4 shards, both kinds, from blocks and
     from whole tensors, bit for bit phase 32's (K2 x 8, K3 x 16 a
-    process), a step timed between barriers; a child's
+    process), a step timed between barriers; phase 33(c)'s members x grid
+    cycle over a 2 x 4 mesh whose owners split by grid half (the ring
+    halo, the model equivalents and the re-split cross the processes),
+    from blocks and from whole tensors, bit for bit phase 33's (K2 x 4,
+    K3 x 4 a process), a step timed between barriers; a child's
     NCCL world of one (process_info, mesh, both analyses as phase 26's;
     by default the mesh and process_info keep every card it sees);
     the native obs loader (built, repaired) feeds 6 config-3 files at
@@ -110,6 +116,17 @@ Phases (one line each; any failure exits non-zero):
     a step; whether a batched matrix-vector product of the inner step's
     shape is the same in 8 batches of 1250 as in one of 10^4, through
     cuBLAS's gemv (printed) and through ienks._matvec (checked)
+ 33 (after 32, before 30) the driver entry points: (a) entry() on the
+    card (K2 x 1, K3 x 1) against its f64 step; (b) dryrun_multichip(8)
+    over 8 virtual shards of the card, every check of it (the members x
+    grid step against the unsharded one, top-k rdma (K8) bit for bit
+    ppermute, the window (K1) within 1e-3 of top-k, the sharded IEnKS,
+    the 2-D halo); (c) bench config 6's workload through the members x
+    grid sharded cycle over a 2 x 4 mesh of virtual shards (K2 x 8 on
+    [20, 2500 + 48] segments, K3 x 8 on [1250, 40, 40]) against the
+    unsharded make_cycle_step (1e-6 of max, the same NaN columns; whether
+    bit for bit) and its f64 step (1e-5); times in turns with the
+    unsharded step, torch.profiler windows and the host's launches a step
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -143,6 +160,7 @@ import torch
 
 import tpu_assim_torch
 from tpu_assim_torch import _build
+from tpu_assim_torch import entry as driver
 from tpu_assim_torch.analysis import (
     _forecast,
     _normalized_obs_space,
@@ -194,7 +212,12 @@ from tpu_assim_torch.models.terrsysmp import (
 from tpu_assim_torch.obs_ops.terrsysmp import CosmoT2mOperator
 from tpu_assim_torch.ops.etkf import letkf_weights_dense
 from tpu_assim_torch.parallel import cuda_halo as k8
-from tpu_assim_torch.parallel import make_grid_mesh, multihost
+from tpu_assim_torch.parallel import (
+    make_forecast_analysis_mesh,
+    make_grid_mesh,
+    multihost,
+)
+from tpu_assim_torch.parallel.forecast import sharded_cycle_step
 from tpu_assim_torch.parallel import (
     sharded_letkf_weights,
     sharded_lienks_step,
@@ -1133,7 +1156,8 @@ def main():
     autograd_phase(dev, gpu, loc, w)
     ref32 = sharded_smoother_phase(dev, gpu, loc, w, exact_nb(worst), out10,
                                    out_b, oracle10, ms_step)
-    multiprocess_phase(dev, gpu, ref26, ref32)
+    ref33 = entry_phase(dev, gpu, loc, w)
+    multiprocess_phase(dev, gpu, ref26, ref32, ref33)
     terrsysmp_phase(dev, gpu)
 
     sources = {
@@ -2937,6 +2961,107 @@ def sharded_smoother_phase(dev, gpu, loc, w, nb, out10, out_b, oracle10,
     return refs
 
 
+# -- 33. the driver entry points and the members x grid cycle ----------------
+
+ENS33, GRID33 = 2, 4    # the (ens, grid) mesh of phase 33(c), virtual shards
+
+
+def config6_cycle(mesh, loc):
+    """Bench config 6's cycle step (4 RK4 steps of Lorenz-96, dt 0.05, the
+    dense localized analysis, inflation 1.1) with the forecast sharded
+    over members x grid and the analysis over both mesh axes."""
+    return sharded_cycle_step(mesh, RK4Integrator(Lorenz96(), L96_DT),
+                              L96_STEPS, loc, INF)
+
+
+def entry_phase(dev, gpu, loc, w):
+    """Phase 33: (a) ``entry()`` on the card, {rk4_l96: 1, svd_jacobi: 1},
+    against its f64 step; (b) ``dryrun_multichip(8)`` over 8 virtual shards
+    of the card, every check of it, with its launches; (c) config 6's
+    workload through the members x grid sharded cycle over a 2 x 4 mesh of
+    virtual shards (K2 on each position's [20, 2500 + 48] segment, K3 on
+    each analysis shard's [1250, 40, 40]), against the unsharded
+    ``make_cycle_step`` (the same NaN columns, 1e-6 of max; whether bit
+    for bit) and its f64 step (1e-5), times in turns with the unsharded
+    step, profiler windows and the host's launches a step. Returns 33(c)'s
+    result, which phase 30's processes must equal bit for bit."""
+    t_phase = time.perf_counter()
+    step, args = driver.entry()
+    out, counts = counted(step, *args)
+    check(counts == {"rk4_l96": 1, "svd_jacobi": 1},
+          f"entry() launches {counts}")
+    step64, args64 = driver.entry(dtype="float64")
+    ref, counts64 = counted(step64, *args64)
+    check(counts64 == {}, f"entry()'s f64 step launched {counts64}")
+    err_a, rel_a = compare(out, ref, "entry() against its f64 step")
+    t0 = time.perf_counter()
+    _, counts_b = counted(driver.dryrun_multichip, 8)
+    s_dry = time.perf_counter() - t0
+    check(all(counts_b.get(n) for n in ("rk4_l96", "window1d", "halo_ring")),
+          f"dryrun_multichip(8) launches {counts_b}")
+    log(33, f"(a) entry() (ens 20, grid 256, 64 obs, GC r=8, 4xRK4, "
+        f"inflation 1.1) on the card: launches {counts}, {tuple(out.shape)}, "
+        f"against its f64 step {err_a!r} ({rel_a!r} of max, budget {TOL}); "
+        f"(b) dryrun_multichip(8) over 8 virtual shards of the card "
+        f"(members x grid step on 2 x 4, halo top-k ppermute and rdma bit "
+        f"for bit, window within 1e-3 of top-k, sharded IEnKS within 1e-5, "
+        f"2-D halo on 2 x 4 tiles): every check held in {s_dry:.2f} s, "
+        f"launches {counts_b} [{gpu}]")
+
+    wt = [torch.as_tensor(x, device=dev) for x in w]
+    mesh = make_forecast_analysis_mesh(ENS33, GRID33,
+                                       devices=[dev] * (ENS33 * GRID33))
+    step = config6_cycle(mesh, loc)
+    out, counts = counted(step, *wt)
+    n = ENS33 * GRID33
+    check(counts == {"rk4_l96": n, "svd_jacobi": n},
+          f"sharded cycle launches {counts}")
+    local = make_cycle_step(RK4Integrator(Lorenz96(), L96_DT), L96_STEPS,
+                            loc, inf_factor=INF)
+    ref, counts_l = counted(local, *wt)
+    check(counts_l == {"rk4_l96": 1, "svd_jacobi": 1},
+          f"unsharded cycle launches {counts_l}")
+    check(torch.equal(torch.isnan(out), torch.isnan(ref)),
+          "sharded cycle: NaN entries differ from the unsharded step")
+    ok = ~torch.isnan(ref)
+    err = float((out[ok] - ref[ok]).abs().max() / ref[ok].abs().max())
+    check(err <= SHARD_TOL, f"sharded cycle against the unsharded step "
+          f"{err!r} > {SHARD_TOL}")
+    bits = "" if torch.equal(out[ok], ref[ok]) else "not "
+    w64 = [t.double() if t.is_floating_point() else t for t in wt]
+    oracle, counts64 = counted(local, *w64)
+    check(counts64 == {}, f"the f64 cycle launched {counts64}")
+    _, rel64 = compare(out, oracle, "sharded cycle vs f64 step")
+    g, k = wt[0].shape[1], wt[0].shape[0]
+    log(33, f"(c) config 6's workload (ens {k}, grid {g}, obs "
+        f"{wt[1].shape[0]}, GC r={RADIUS}, {L96_STEPS}xRK4 dt {L96_DT}, "
+        f"inflation {INF}, dense analysis) through the members x grid cycle "
+        f"over a {ENS33} x {GRID33} mesh of virtual shards of the card (K2 "
+        f"on [{k // ENS33}, {g // GRID33} + {12 * L96_STEPS}] a position, "
+        f"K3 on [{g // n}, {k}, {k}] an analysis shard): launches {counts} "
+        f"(unsharded {counts_l}); against the unsharded step {err!r} of max "
+        f"({bits}bit for bit), {int(torch.isnan(out).any(0).sum())} NaN "
+        f"columns as it; against the f64 step {rel64!r} (budget {TOL}) "
+        f"[{gpu}]")
+    three = lambda fn: median_ms(fn, reps=10, inner=3)       # noqa: E731
+    ms_sharded, ms_unsharded = paired_ms(
+        lambda: step(*wt), lambda: local(*wt), plain_time=three,
+        kernel_time=three)
+    hosts = {name: host_calls(fn)[0] for name, fn in (
+        ("sharded", lambda: step(*wt)), ("unsharded", lambda: local(*wt)))}
+    log(33, f"(c) cycle step, CUDA events around 3 back-to-back steps, "
+        f"median of 10, in turns: sharded {ms_sharded!r} ms = "
+        f"{g / ms_sharded * 1e3!r} grid-points/s, unsharded {ms_unsharded!r} "
+        f"ms = {g / ms_unsharded * 1e3!r} grid-points/s; torch.profiler, 5 "
+        f"calls each: " + profile_note("sharded step", lambda: step(*wt))
+        + "; " + profile_note("unsharded step", lambda: local(*wt))
+        + "; host (torch.profiler CPU activity, 3 calls): " + "; ".join(
+            f"{name} {launches!r} kernel launches a step"
+            for name, launches in hosts.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return out
+
+
 # -- 30. the halo LETKF across processes --------------------------------------
 
 GROUP_TIMEOUT = 60   # s: the process groups' timeout
@@ -3032,8 +3157,11 @@ def phase30_worker(rank, port, out):
     this process's blocks and from whole tensors, with the launches of
     each; a profiler window of each top-k exchange's copies; the rdma and
     ppermute calls and exchanges (config 3, [103, 8192] x 8) timed in
-    turns; the grid-sharded weights saved by DCP; comm="rdma" raising once
-    the two processes claim two hosts; results and times to ``out``."""
+    turns; phase 32's sharded smoother and phase 33(c)'s members x grid
+    cycle (owners by grid half) from blocks and from whole tensors, timed
+    between barriers; the grid-sharded weights saved by DCP; comm="rdma"
+    raising once the two processes claim two hosts; results and times to
+    ``out``."""
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize_multihost(f"tcp://localhost:{port}", 2, rank,
@@ -3128,6 +3256,27 @@ def phase30_worker(rank, port, out):
         results[f"lienks_{kind}_whole"] = got.cpu()
     report["lienks_ms"] = synced_ms(step, blocks9)
     report["lienks_whole_ms"] = synced_ms(step, whole9)
+    # phase 33(c)'s members x grid cycle over a 2 x 4 mesh whose owners
+    # split by grid half: the ring halo, the model equivalents and the
+    # re-split into the analysis layout cross the processes
+    half = [0] * (GRID33 // 2) + [1] * (GRID33 // 2)
+    mesh33 = make_forecast_analysis_mesh(ENS33, GRID33,
+                                         devices=[dev] * (ENS33 * GRID33),
+                                         owners=[half] * ENS33)
+    cycle = config6_cycle(mesh33, loc)
+    blocks33 = [multihost.host_local_to_global(
+        mesh33, local(w9[0], 1), axis=(0, 1), axis_name=("ens", "grid"))
+    ] + whole9[1:]
+    got, report["cycle_launches"] = counted(cycle, *blocks33)
+    mine = sorted(key for key in got.keys() if got.owner(key) == rank)
+    check(isinstance(got, multihost.GlobalTensor)
+          and sorted(got.blocks) == mine and len(mine) == 4,
+          f"cycle: this process's blocks are {sorted(got.blocks)}")
+    results["cycle"] = got.gather().cpu()
+    got, report["cycle_whole_launches"] = counted(cycle, *whole9)
+    results["cycle_whole"] = got.cpu()
+    report["cycle_ms"] = synced_ms(cycle, blocks33)
+    report["cycle_whole_ms"] = synced_ms(cycle, whole9)
     perts, innov, ginfo, oinfo = config3_obs_space(w3, dev)
     weights = sharded_letkf_weights(
         mesh, loc, perts, innov,
@@ -3217,15 +3366,16 @@ def window_note(rows):
                      sorted(rows.items(), key=lambda kv: -kv[1][0]))
 
 
-def multiprocess_phase(dev, gpu, ref26, ref32):
+def multiprocess_phase(dev, gpu, ref26, ref32, ref33):
     """Phase 30: the config-3 halo analyses across two processes that
     share the card (gloo, 4 virtual shards each) against phase 26's
     one-process analyses, bit for bit, comm="rdma" through K8 over CUDA
     IPC among them (no block through the host, 1 launch a process);
     K8's exchange alone across them at config 3 and [103, 8192] x 8;
     comm="rdma" raising once the processes claim two hosts;
-    phase 32's grid-sharded smoother over the two processes, from blocks
-    and from whole tensors, against ``ref32`` bit for bit; a world of one
+    phase 32's grid-sharded smoother and phase 33(c)'s members x grid
+    cycle over the two processes, from blocks and from whole tensors,
+    against ``ref32`` and ``ref33`` bit for bit; a world of one
     process over NCCL; the obs-ingest loader feeding the halo analysis,
     and 200 loader passes in a child; the sharded weight checkpoint
     written by the two processes."""
@@ -3322,6 +3472,14 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
                     same_bits(res[f"lienks_{kind}{form}"].to(dev),
                               ref32[kind], f"rank {r} sharded {kind}{form} "
                               "against phase 32")
+            for form in ("", "_whole"):
+                check(rep[f"cycle{form}_launches"]
+                      == {"rk4_l96": 4, "svd_jacobi": 4},
+                      f"rank {r}: members x grid cycle{form} launches "
+                      f"{rep[f'cycle{form}_launches']}")
+                same_bits(res[f"cycle{form}"].to(dev), ref33,
+                          f"rank {r} members x grid cycle{form} against "
+                          "phase 33")
         with open(os.path.join(out, "nccl.json")) as f:
             rep_nccl = json.load(f)
         res = torch.load(os.path.join(out, "nccl.pt"))
@@ -3392,6 +3550,14 @@ def multiprocess_phase(dev, gpu, ref26, ref32):
         f"{reports[0]['lienks_transform_launches']}; both kinds, from "
         f"blocks and from whole tensors, equal to phase 32 bit for bit on "
         f"both ranks")
+    notes.append(
+        f"phase 33(c)'s members x grid cycle (config 6, {ENS33} x {GRID33} "
+        f"mesh, owners by grid half): 2 processes "
+        f"{reports[0]['cycle_ms']!r} ms a step from blocks, "
+        f"{reports[0]['cycle_whole_ms']!r} ms from whole tensors (between "
+        f"barriers); launches a process {reports[0]['cycle_launches']}; "
+        f"from blocks and from whole tensors equal to phase 33 bit for bit "
+        f"on both ranks")
     log(30, f"config 3 (ens 40, grid {G3}, obs {O3}, GC r={RADIUS}, nb "
         f"{opts['max_obs']}, halo {opts['halo_width']}, degree {DEGREE}) "
         "across 2 processes (gloo, 4 virtual shards of the card each): "

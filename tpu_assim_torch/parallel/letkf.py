@@ -54,12 +54,19 @@ def _local_solve(localization, chunksize, perts, innov, grid_info, obs_info,
     return map_grid_chunked(chunk_fn, grid_info, chunksize)
 
 
-def _grid_shards(mesh: Mesh, axis_name: str, n_grid: int):
-    """``(device, column slice)`` of each shard of ``axis_name`` (None for
-    a shard of another process), and the owner ranks (None on a mesh of
-    one process)."""
-    devices = _axis_devices(mesh, axis_name)
-    owners = _axis_owners(mesh, axis_name)
+def _axes(axis_name):
+    """``axis_name`` (a mesh axis, or a tuple of them) as a tuple."""
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def _grid_shards(mesh: Mesh, axis_name, n_grid: int):
+    """``(device, column slice)`` of each shard of ``axis_name`` (a mesh
+    axis or a tuple of them, flattened row-major; None for a shard of
+    another process), and the owner ranks (None on a mesh of one
+    process)."""
+    axes = _axes(axis_name)
+    devices = _axis_devices(mesh, *axes)
+    owners = _axis_owners(mesh, *axes)
     if n_grid % len(devices):
         raise ValueError(f"a grid of {n_grid} columns does not split evenly "
                          f"over {len(devices)} shards")
@@ -70,11 +77,11 @@ def _grid_shards(mesh: Mesh, axis_name: str, n_grid: int):
             for i, device in enumerate(devices)], owners
 
 
-def _take(x, dim: int, axis_name: str, index: int, cols, device):
+def _take(x, dim: int, axis_name, index: int, cols, device):
     """Shard ``index``'s columns of ``x``: a GlobalTensor's own block (split
     along ``dim`` over ``axis_name``) or a slice of a whole tensor."""
     if isinstance(x, GlobalTensor):
-        if not x.matches((dim,), ((axis_name,),)):
+        if not x.matches((dim,), (_axes(axis_name),)):
             raise ValueError(f"an input split {x.dims} over {x.axes}; the "
                              f"grid dim {dim} splits over {axis_name!r}")
         return x.blocks[(index,)]
@@ -105,12 +112,14 @@ def sharded_letkf_weights(
     obs_info: torch.Tensor,
     inf_factor,
     chunksize: Optional[int] = None,
-    axis_name: str = GRID_AXIS,
+    axis_name=GRID_AXIS,
 ):
     """Per-gridpoint ensemble weights [grid, k, k], the grid split over
-    ``axis_name`` of ``mesh``; returned on the device of
-    ``ens_obs_perts`` (a GlobalTensor over the grid when ``grid_info`` is
-    one). The grid size must divide evenly over the axis."""
+    ``axis_name`` of ``mesh`` (a mesh axis, or a tuple of them over which
+    the grid splits row-major, as JAX's ``P(("ens", "grid"))``); returned
+    on the device of ``ens_obs_perts`` (a GlobalTensor over the grid when
+    ``grid_info`` is one). The grid size must divide evenly over the
+    axes."""
     solve = partial(_local_solve, localization, chunksize)
     shards, owners = _grid_shards(mesh, axis_name, grid_info.shape[0])
     out = [None if shard is None else solve(
@@ -131,9 +140,11 @@ def sharded_letkf_analysis(
     obs_info: torch.Tensor,
     inf_factor,
     chunksize: Optional[int] = None,
-    axis_name: str = GRID_AXIS,
+    axis_name=GRID_AXIS,
 ):
-    """Weights and their application per grid shard.
+    """Weights and their application per grid shard, the grid split over
+    ``axis_name`` (a mesh axis or a tuple of them, as
+    :func:`sharded_letkf_weights`).
 
     Parameters
     ----------

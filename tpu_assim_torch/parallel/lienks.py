@@ -109,11 +109,12 @@ def sharded_lienks_step(
     selection: str = "window",
     max_obs_strict: bool = True,
     obs_operator: Optional[Callable] = None,
-    axis_name: str = GRID_AXIS,
+    axis_name=GRID_AXIS,
 ):
     """Build the localized IEnKS step of
     :func:`tpu_assim_torch.analysis.make_lienks_step` (its parameters, in
-    its order) with the grid split over ``axis_name`` of ``mesh``.
+    its order) with the grid split over ``axis_name`` of ``mesh`` (a mesh
+    axis, or a tuple of them flattened row-major).
 
     The forecast takes the ring-halo route for a stock
     ``RK4Integrator(Lorenz96(F))`` (:func:`ring_reach`). Any other

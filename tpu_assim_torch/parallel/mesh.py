@@ -11,8 +11,8 @@ functions take global tensors, split them over the mesh and return the
 global result.
 
 The ``grid`` axis shards grid columns (the analysis); the ``ens`` axis of
-:func:`make_forecast_analysis_mesh` is there for a forecast sharded over
-members.
+:func:`make_forecast_analysis_mesh` shards the members of the forecast of
+:mod:`tpu_assim_torch.parallel.forecast`.
 
 A mesh may span processes (:func:`tpu_assim_torch.parallel.multihost.
 global_grid_mesh`): then ``owners`` gives the rank of the process that
@@ -133,15 +133,19 @@ def make_grid_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
 
 
 def make_forecast_analysis_mesh(ens_shards: int, grid_shards: int,
-                                devices=None) -> Mesh:
+                                devices=None, owners=None) -> Mesh:
     """2-D mesh ``(ens, grid)``: the forecast shards ensemble members over
-    ``ens``, the analysis shards grid columns over ``grid``."""
+    ``ens`` and grid columns over ``grid``
+    (:mod:`tpu_assim_torch.parallel.forecast`), the analysis shards grid
+    columns over both axes flattened. ``owners`` (the rank of each
+    position, in the mesh's shape or flat in row-major order) makes it
+    span processes."""
     devices = _cuda_devices() if devices is None else list(devices)
     n = ens_shards * grid_shards
     if len(devices) < n:
         raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
     return Mesh(np.asarray(devices[:n], dtype=object).reshape(
-        ens_shards, grid_shards), (ENS_AXIS, GRID_AXIS))
+        ens_shards, grid_shards), (ENS_AXIS, GRID_AXIS), owners=owners)
 
 
 def shard_state(state, mesh: Mesh):
