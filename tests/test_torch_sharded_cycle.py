@@ -19,8 +19,8 @@ tuple of mesh axes, against the JAX package on its 8 virtual CPU devices
 - Against the port's unsharded ``make_cycle_step``; from GlobalTensors of
   any split, bit for bit the whole-tensor step; a step's result into the
   next; an integrator of unknown reach (the whole ensemble); the re-split
-  alone; the K3 gate at shard shapes; members or columns that do not
-  split evenly raise before any exchange.
+  alone; the model equivalents alone; the K3 gate at shard shapes;
+  members or columns that do not split evenly raise before any exchange.
 - Two processes over gloo (the mesh's owners split by grid half, so the
   ring halo, the model equivalents and the re-split cross them), from
   whole tensors and from blocks, bit for bit one process; an uneven grid
@@ -53,6 +53,7 @@ from tpu_assim_torch.ops.cuda import svd as k3
 from tpu_assim_torch.ops.localization import GaspariCohn
 from tpu_assim_torch.parallel import forecast as pf
 from tpu_assim_torch.parallel import letkf as tpl
+from tpu_assim_torch.parallel import lienks as plk
 from tpu_assim_torch.parallel import make_forecast_analysis_mesh
 from tpu_assim_torch.parallel import make_grid_mesh, sharded_lienks_step
 from tpu_assim_torch.parallel import multihost as mh
@@ -316,10 +317,10 @@ def test_forecast_in_f32_is_the_ring_bit_for_bit(rng):
 
 def test_one_dim_grid_mesh(rng):
     """A grid mesh without an ``ens`` axis (the dryrun's odd case): every
-    member on each position, the analysis over ``("grid",)``."""
+    member on each position, the analysis over the mesh's one axis."""
     w = [t(a) for a in problem(rng, 48)]
     mesh = make_grid_mesh(3, devices=["cpu"] * 3)
-    out = port_step(mesh, 2, axis_name=("grid",))(*w)
+    out = port_step(mesh, 2)(*w)
     ref = TA.make_cycle_step(RK4Integrator(Lorenz96(), DT), 2, port_loc(),
                              INF)(*w)
     close(out, ref, 1e-12)
@@ -378,7 +379,7 @@ def test_resplit_copies_exactly(rng):
     forms = global_forms(mesh, state)
     for a in forms.values():
         for b in forms.values():
-            got = pf.resplit(a, b)
+            got = mh.resplit(a, b)
             assert got.dims == b.dims and got.axes == b.axes
             for key, block in got.blocks.items():
                 assert torch.equal(block, state[b.slices(key)])
@@ -394,7 +395,7 @@ def test_unknown_reach_takes_the_whole_ensemble(rng, monkeypatch):
     w = [t(a) for a in problem(rng, 64)]
     mesh = make_forecast_analysis_mesh(2, 4, devices=CPU8)
     ref = port_step(mesh, 3)(*w)
-    monkeypatch.setattr(pf, "exchange_blocks", None)
+    monkeypatch.setattr(plk, "exchange_blocks", None)
     out = pf.sharded_cycle_step(mesh, ShiftIntegrator(Lorenz96(), DT), 3,
                                 port_loc(), INF)(*w)
     close(out, ref, 0.0)
@@ -419,19 +420,28 @@ def test_uneven_split_raises_before_any_exchange(rng, monkeypatch, k, g,
     def no_call(*a, **kw):
         raise AssertionError("an exchange started")
 
-    for name in ("exchange_blocks", "all_blocks", "_transfer"):
-        monkeypatch.setattr(pf, name, no_call)
+    for module, name in ((plk, "exchange_blocks"), (plk, "all_blocks"),
+                         (mh, "all_blocks"), (mh, "_transfer")):
+        monkeypatch.setattr(module, name, no_call)
     w = [t(a) for a in problem(rng, g, k=k)]
     mesh = make_forecast_analysis_mesh(*layout, devices=CPU8)
     with pytest.raises(ValueError, match="split evenly"):
         port_step(mesh, 2)(*w)
 
 
-def test_an_axis_the_mesh_lacks_raises():
-    """The default ``("ens", "grid")`` on a grid mesh names an axis it
-    lacks: ValueError when the step is built."""
-    with pytest.raises(ValueError, match="not in mesh axes"):
-        port_step(make_grid_mesh(8, devices=CPU8), 2)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_obs_equivalents_copy_exactly(rng, layout):
+    """The model equivalents of an ensemble in the forecast layout, with
+    observations in every block, repeated and at both ends of the grid,
+    are ``x[:, obs_idx]`` bit for bit."""
+    state = t(rng.normal(size=(8, 64)))
+    obs_idx = torch.as_tensor(np.r_[0, 63, 63, rng.randint(0, 64, 29)])
+    mesh = make_forecast_analysis_mesh(*layout, devices=CPU8)
+    fc = pf._split(state, pf._forecast_layout(mesh, state.shape))
+    keys = fc.keys()
+    got = plk.obs_equivalents([fc.blocks[key] for key in keys],
+                              fc.splits[1], obs_idx, None, "cpu")
+    assert torch.equal(got, state[:, obs_idx])
 
 
 @pytest.mark.parametrize("shards, k3_calls", [(4, 4), (8, 0)])

@@ -144,12 +144,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     # the members x grid forecast and the analysis over every position
     if n_devices % 2 == 0:
         mesh = make_forecast_analysis_mesh(2, n_devices // 2, devices)
-        grid_axes = ("ens", "grid")
     else:
         mesh = make_grid_mesh(n_devices, devices)
-        grid_axes = ("grid",)
-    full_step = sharded_cycle_step(mesh, integrator, 2, loc, 1.1,
-                                   axis_name=grid_axes)
+    full_step = sharded_cycle_step(mesh, integrator, 2, loc, 1.1)
     out = full_step(*args)
     _check(out.shape == (ens_size, len_grid), f"step shape {out.shape}")
     _check(bool(torch.isfinite(out).all()), "the step is not finite")

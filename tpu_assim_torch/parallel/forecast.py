@@ -13,30 +13,31 @@ positions:
 - the forecast layout: position ``(e, s)`` holds members block ``e`` and
   grid block ``s``, ``[k / E, g / S]`` (without an ``ens`` axis, every
   member: ``E = 1``);
-- the analysis layout: the grid split over ``axis_name`` (by default both
-  axes, flattened row-major), every member, ``[k, g / (E S)]``.
+- the analysis layout: the grid split over every axis of the mesh,
+  flattened row-major, every member, ``[k, g / (E S)]``.
 
 A step runs, in order:
 
-1. the forecast: each position receives its ring halo from the positions
-   of its own ens row, ``L = 8 n`` columns left and ``R = 4 n`` right
-   (modulo the grid; a halo may span several shards and wrap,
-   :func:`tpu_assim_torch.parallel.lienks.segment_plan`), runs the
-   forecast on its segment ``[k / E, L + g / S + R]`` (the fused RK4
-   kernel K2 wherever it applies) and keeps the interior. An integrator
-   whose reach is not known (:func:`~tpu_assim_torch.parallel.lienks.
-   ring_reach`) integrates the whole ensemble, assembled on every process;
+1. the forecast (:func:`~tpu_assim_torch.parallel.lienks.ring_forecast`):
+   each position receives its ring halo from the positions of its own ens
+   row, ``L = 8 n`` columns left and ``R = 4 n`` right (modulo the grid;
+   a halo may span several shards and wrap), runs the forecast on its
+   segment ``[k / E, L + g / S + R]`` (the fused RK4 kernel K2 wherever it
+   applies) and keeps the interior. An integrator whose reach is not
+   known (:func:`~tpu_assim_torch.parallel.lienks.ring_reach`) integrates
+   the whole ensemble, assembled on every process;
 2. the model equivalents ``forecast[:, obs_idx]`` as one replicated
-   ``[k, o]`` tensor: each position copies its members' entries of the
+   ``[k, o]`` tensor (:func:`~tpu_assim_torch.parallel.lienks.
+   obs_equivalents`): each position copies its members' entries of the
    observations in its columns into place, then each process's part is
-   assembled (:func:`~tpu_assim_torch.parallel.multihost.all_blocks`).
-   Copies, not sums: exact;
-3. the re-split of the forecast into the analysis layout, an all-to-all
+   assembled. Copies, not sums: exact;
+3. the re-split of the forecast into the analysis layout
+   (:func:`~tpu_assim_torch.parallel.multihost.resplit`), an all-to-all
    of copies: each analysis shard receives the forecast blocks that hold
    its columns;
 4. :func:`~tpu_assim_torch.parallel.letkf.sharded_letkf_analysis` over
-   ``axis_name``; each shard's eigh goes to the Jacobi kernel K3 when the
-   shard holds at least 256 f32 columns on the card
+   every axis of the mesh; each shard's eigh goes to the Jacobi kernel K3
+   when the shard holds at least 256 f32 columns on the card
    (:func:`tpu_assim_torch.ops.linalg.eigh_psd`), else to LAPACK.
 
 On a mesh that spans processes (``owners``) each process runs its own
@@ -48,93 +49,33 @@ asynchronously.
 
 from typing import Optional
 
-import numpy as np
-import torch
-
 from tpu_assim_torch.analysis import (
     _forecast,
     _normalized_obs_space,
     _with_time,
 )
-from tpu_assim_torch.parallel.letkf import _axes, sharded_letkf_analysis
-from tpu_assim_torch.parallel.lienks import ring_reach, segment_plan
+from tpu_assim_torch.parallel.letkf import sharded_letkf_analysis
+from tpu_assim_torch.parallel.lienks import (
+    obs_equivalents,
+    ring_forecast,
+    ring_reach,
+)
 from tpu_assim_torch.parallel.mesh import ENS_AXIS, GRID_AXIS, Mesh
 from tpu_assim_torch.parallel.multihost import (
     GlobalTensor,
-    _template,
-    _transfer,
-    all_blocks,
-    exchange_blocks,
     process_index,
+    resplit,
 )
 
-__all__ = ["sharded_forecast", "sharded_cycle_step", "resplit"]
+__all__ = ["sharded_forecast", "sharded_cycle_step"]
 
 
-def _forecast_layout(mesh: Mesh, shape, ens_axis: str, grid_axis: str):
+def _forecast_layout(mesh: Mesh, shape):
     """An empty GlobalTensor of ``shape`` ``[k, g]`` in the forecast
-    layout: members over ``ens_axis`` (when the mesh has it), columns over
-    ``grid_axis``. Raises ``ValueError`` on an uneven split."""
-    if grid_axis not in mesh.shape:
-        raise ValueError(f"axis {grid_axis!r} not in mesh axes "
-                         f"{mesh.axis_names}")
-    ens = (ens_axis,) if ens_axis in mesh.shape else ()
-    return GlobalTensor(mesh, shape, (0, 1), (ens, (grid_axis,)), {})
-
-
-def _bounds(x: GlobalTensor, key):
-    """``(start, stop)`` of a shard's block along every dim."""
-    return [(0, n) if s.start is None else (s.start, s.stop)
-            for s, n in zip(x.slices(key), x.shape)]
-
-
-def _overlap(a, b):
-    """The intersection of two blocks' bounds, or None."""
-    out = [(max(x[0], y[0]), min(x[1], y[1])) for x, y in zip(a, b)]
-    return None if any(lo >= hi for lo, hi in out) else out
-
-
-def _within(region, bounds):
-    """``region`` (global bounds) as an index into a block at ``bounds``."""
-    return tuple(slice(lo - b[0], hi - b[0])
-                 for (lo, hi), b in zip(region, bounds))
-
-
-def resplit(x: GlobalTensor, layout: GlobalTensor) -> GlobalTensor:
-    """``x`` split as ``layout`` (a GlobalTensor of the same shape and mesh;
-    its blocks are not read). Each block of this process is assembled by
-    copies from the blocks of ``x`` that overlap it; another process's
-    blocks arrive by ``torch.distributed`` transfers, once for each
-    receiving process. Bit for bit; ``x`` itself when the splits agree. A
-    collective of every process of the mesh."""
-    if x.matches(layout.dims, layout.axes):
-        return x
-    src_keys = x.keys()
-    src_bounds = [_bounds(x, key) for key in src_keys]
-    owners = [x.owner(key) for key in src_keys]
-    blocks = [x.blocks.get(key) for key in src_keys]
-    plan = {}
-    for key in layout.keys():
-        dst = _bounds(layout, key)
-        plan[key] = [(i, region) for i, src in enumerate(src_bounds)
-                     if (region := _overlap(src, dst)) is not None]
-    pairs = sorted({(i, layout.owner(key)) for key, parts in plan.items()
-                    for i, _ in parts if owners[i] != layout.owner(key)})
-    template = _template(blocks)
-    received = _transfer(pairs, blocks, owners, template) if pairs else {}
-    rank, out = process_index(), {}
-    for key, parts in plan.items():
-        if layout.owner(key) != rank:
-            continue
-        device, dst = layout.device(key), _bounds(layout, key)
-        block = torch.empty(layout.block_shape(), dtype=template.dtype,
-                            device=device)
-        for i, region in parts:
-            src = blocks[i] if blocks[i] is not None else received[i]
-            block[_within(region, dst)] = src[
-                _within(region, src_bounds[i])].to(device)
-        out[key] = block
-    return GlobalTensor(x.mesh, x.shape, layout.dims, layout.axes, out)
+    layout: members over the ``ens`` axis (when the mesh has it), columns
+    over the ``grid`` axis. Raises ``ValueError`` on an uneven split."""
+    ens = (ENS_AXIS,) if ENS_AXIS in mesh.shape else ()
+    return GlobalTensor(mesh, shape, (0, 1), (ens, (GRID_AXIS,)), {})
 
 
 def _split(state_data, layout: GlobalTensor) -> GlobalTensor:
@@ -149,41 +90,24 @@ def _split(state_data, layout: GlobalTensor) -> GlobalTensor:
         for key in layout.keys() if layout.owner(key) == rank})
 
 
-def _blocks_forecast(integrator, n_int_steps: int, cache: dict):
+def _blocks_forecast(integrator, n_int_steps: int):
     """The forecast of a GlobalTensor in the forecast layout (the same
     layout out), by ring halos for a known reach, else on the whole
-    ensemble. ``cache`` keeps segment plans and their indices on device."""
+    ensemble."""
     reach = ring_reach(integrator, n_int_steps)
+    cache = {}                  # ring_forecast's segment plans
 
     def forecast(fc: GlobalTensor) -> GlobalTensor:
-        keys = fc.keys()
-        n_ens, n_shards = fc.splits
-        n_grid, size = fc.shape[1], fc.block_shape()[1]
         if reach is None:
             whole = _forecast(integrator, n_int_steps, fc.gather())
             return _split(whole, fc)
-        left, right = reach
-        if (n_grid, n_shards) not in cache:
-            cache[n_grid, n_shards] = segment_plan(n_grid, n_shards, left,
-                                                   right)
-        plan = cache[n_grid, n_shards]
-        received = exchange_blocks(
-            [fc.blocks.get(key) for key in keys],
-            [[e * n_shards + src for src in plan[s][0]] for e, s in keys],
-            [fc.owner(key) for key in keys])
-        out = {}
-        for key, parts in zip(keys, received):
-            if parts is None:
-                continue
-            s, device = key[1], parts[0].device
-            if (n_grid, n_shards, s, device) not in cache:
-                cache[n_grid, n_shards, s, device] = torch.as_tensor(
-                    plan[s][1], device=device)
-            segment = torch.cat(parts, dim=1)[
-                :, cache[n_grid, n_shards, s, device]]
-            out[key] = _forecast(integrator, n_int_steps,
-                                 segment)[:, left:left + size]
-        return GlobalTensor(fc.mesh, fc.shape, fc.dims, fc.axes, out)
+        keys = fc.keys()
+        out = ring_forecast(integrator, n_int_steps,
+                            [fc.blocks.get(key) for key in keys],
+                            [fc.owner(key) for key in keys], fc.shape[1],
+                            fc.splits[1], cache)
+        return GlobalTensor(fc.mesh, fc.shape, fc.dims, fc.axes, {
+            key: block for key, block in zip(keys, out) if block is not None})
 
     return forecast
 
@@ -196,58 +120,25 @@ def _whole_or_blocks(out: GlobalTensor, state_data):
     return out.gather(state_data.device)
 
 
-def sharded_forecast(mesh: Mesh, integrator, n_int_steps: int,
-                     ens_axis: str = ENS_AXIS, grid_axis: str = GRID_AXIS):
+def sharded_forecast(mesh: Mesh, integrator, n_int_steps: int):
     """Build the forecast of a ``[k, g]`` ensemble sharded over members
-    (``ens_axis``, when the mesh has it) and grid columns (``grid_axis``):
-    ``n_int_steps`` of ``integrator`` on every position's ring segment.
+    (the ``ens`` axis, when the mesh has it) and grid columns (the
+    ``grid`` axis): ``n_int_steps`` of ``integrator`` on every position's
+    ring segment.
 
     Returns forecast(state_data) -> forecast ``[k, g]``: the whole tensor on
     the device of ``state_data`` on every process when it is whole, this
     process's blocks in the forecast layout when it is a GlobalTensor (of
     any split, re-split first). Members and columns that do not split
     evenly raise ``ValueError`` before any exchange."""
-    step = _blocks_forecast(integrator, n_int_steps, {})
+    step = _blocks_forecast(integrator, n_int_steps)
     integrate = integrator is not None and n_int_steps != 0
 
     def forecast(state_data):
-        fc = _split(state_data, _forecast_layout(
-            mesh, state_data.shape, ens_axis, grid_axis))
+        fc = _split(state_data, _forecast_layout(mesh, state_data.shape))
         return _whole_or_blocks(step(fc) if integrate else fc, state_data)
 
     return forecast
-
-
-def _obs_equivalents(fc: GlobalTensor, obs_idx, home):
-    """The replicated ``[k, o]`` model equivalents of a forecast in the
-    forecast layout, on ``home``: each block's members at the observations
-    in its columns, copied into place, then each process's part."""
-    n_ens, n_shards = fc.splits
-    rows, size = fc.block_shape()
-    held_by = obs_idx // size                     # grid block of each obs
-    local = obs_idx - held_by * size
-    part = None
-    for (e, s), block in sorted(fc.blocks.items()):
-        cand = block[:, local.to(block.device)].to(home)
-        if part is None:
-            part = torch.zeros((fc.shape[0], obs_idx.shape[0]),
-                               dtype=block.dtype, device=home)
-        mine = slice(e * rows, (e + 1) * rows)
-        part[mine] = torch.where(held_by == s, cand, part[mine])
-    owners = [fc.owner(key) for key in fc.keys()]
-    ranks = sorted(set(owners))
-    if len(ranks) == 1:
-        return part
-    parts = all_blocks([part if r == process_index() else None
-                        for r in ranks], ranks, home)
-    owner = torch.as_tensor(np.asarray(owners).reshape(n_ens, n_shards),
-                            device=home)
-    member_block = torch.arange(fc.shape[0], device=home) // rows
-    owner = owner[member_block[:, None], held_by[None, :]]      # [k, o]
-    ens_obs = parts[0]
-    for r, other in zip(ranks[1:], parts[1:]):
-        ens_obs = torch.where(owner == r, other, ens_obs)
-    return ens_obs
 
 
 def sharded_cycle_step(
@@ -257,15 +148,12 @@ def sharded_cycle_step(
     localization,
     inf_factor=1.0,
     chunksize: Optional[int] = None,
-    axis_name=(ENS_AXIS, GRID_AXIS),
-    ens_axis: str = ENS_AXIS,
-    grid_axis: str = GRID_AXIS,
 ):
     """Build the cycle step of :func:`tpu_assim_torch.analysis.
     make_cycle_step` (the forecast, then the dense localized LETKF
     analysis) with the forecast sharded over members x grid and the
-    analysis over ``axis_name`` (a mesh axis or a tuple of them, flattened
-    row-major; by default every position of an ``(ens, grid)`` mesh).
+    analysis over every axis of the mesh, flattened row-major, as the JAX
+    package's dryrun ``full_step`` runs it.
 
     Returns
     -------
@@ -275,32 +163,31 @@ def sharded_cycle_step(
     ``state_data`` is whole, or a GlobalTensor of any split of its two
     dims (re-split into the forecast layout first; the result of a step
     goes into the next); ``grid_coords`` whole, or a GlobalTensor split
-    along dim 0 over ``axis_name``; the observations are replicated. Whole
-    inputs give the whole analysis on every process (on the device of
-    ``state_data``), a GlobalTensor ``state_data`` this process's blocks
-    in the analysis layout (``[k, g]`` split along dim 1 over
-    ``axis_name``). Members or columns that do not split evenly over the
-    forecast or the analysis raise ``ValueError`` before any exchange; an
-    axis that the mesh lacks raises it when the step is built.
+    along dim 0 over every axis of the mesh; the observations are
+    replicated. Whole inputs give the whole analysis on every process (on
+    the device of ``state_data``), a GlobalTensor ``state_data`` this
+    process's blocks in the analysis layout (``[k, g]`` split along dim 1
+    over every axis of the mesh). Members or columns that do not split
+    evenly over the forecast or the analysis raise ``ValueError`` before
+    any exchange.
     """
-    axes = _axes(axis_name)
-    for axis in axes:
-        if axis not in mesh.shape:
-            raise ValueError(f"axis {axis!r} not in mesh axes "
-                             f"{mesh.axis_names}")
-    forecast = _blocks_forecast(integrator, n_int_steps, {})
+    axes = mesh.axis_names
+    forecast = _blocks_forecast(integrator, n_int_steps)
     integrate = integrator is not None and n_int_steps != 0
 
     def step(state_data, obs_vals, obs_var, obs_idx, grid_coords,
              obs_coords):
         shape = tuple(state_data.shape)
-        layout = _forecast_layout(mesh, shape, ens_axis, grid_axis)
+        layout = _forecast_layout(mesh, shape)
         analysis = GlobalTensor(mesh, shape, (1,), (axes,), {})
         fc = _split(state_data, layout)
         if integrate:
             fc = forecast(fc)
         home = fc.blocks[min(fc.blocks)].device
-        ens_obs = _obs_equivalents(fc, obs_idx.to(home), home)
+        keys = fc.keys()
+        ens_obs = obs_equivalents([fc.blocks.get(key) for key in keys],
+                                  fc.splits[1], obs_idx.to(home),
+                                  [fc.owner(key) for key in keys], home)
         perts, innov = _normalized_obs_space(ens_obs, obs_vals.to(home),
                                              obs_var.to(home))
         split = resplit(fc, analysis)

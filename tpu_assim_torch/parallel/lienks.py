@@ -61,7 +61,8 @@ from tpu_assim_torch.parallel.multihost import (
     process_index,
 )
 
-__all__ = ["ring_reach", "segment_plan", "sharded_lienks_step"]
+__all__ = ["obs_equivalents", "ring_forecast", "ring_reach", "segment_plan",
+           "sharded_lienks_step"]
 
 
 def ring_reach(integrator, n_steps: int):
@@ -94,6 +95,80 @@ def segment_plan(n_grid: int, n_shards: int, left: int, right: int):
         plans.append((sources,
                       np.searchsorted(sources, held_by) * size + cols % size))
     return plans
+
+
+def ring_forecast(integrator, n_int_steps: int, blocks, owners, n_grid: int,
+                  n_shards: int, cache: dict):
+    """Each block's forecast on its ring segment: ``n_int_steps`` of
+    ``integrator`` (of known reach, :func:`ring_reach`) on the columns of
+    its block with ``L`` left and ``R`` right of them, of which it keeps
+    the interior.
+
+    ``blocks``: a ``[k, n_grid]`` ensemble split into rows of ``n_shards``
+    grid blocks (``[k / E, n_grid / n_shards]``, flat and row-major, the
+    rows being member blocks; None for a block of another process);
+    ``owners``: their ranks, or None. A block's halo comes from the blocks
+    of its own row (:func:`segment_plan`,
+    :func:`~tpu_assim_torch.parallel.multihost.exchange_blocks`).
+    ``cache`` keeps the segment plans and their indices on device. Returns
+    the forecast blocks in the same order (None for another process's)."""
+    left, right = ring_reach(integrator, n_int_steps)
+    size = n_grid // n_shards
+    if (n_grid, n_shards) not in cache:
+        cache[n_grid, n_shards] = segment_plan(n_grid, n_shards, left, right)
+    plan = cache[n_grid, n_shards]
+    received = exchange_blocks(
+        blocks, [[i - i % n_shards + src for src in plan[i % n_shards][0]]
+                 for i in range(len(blocks))], owners)
+    out = [None] * len(blocks)
+    for i, parts in enumerate(received):
+        if parts is None:
+            continue
+        s, device = i % n_shards, parts[0].device
+        if (n_grid, n_shards, s, device) not in cache:
+            cache[n_grid, n_shards, s, device] = torch.as_tensor(
+                plan[s][1], device=device)
+        segment = torch.cat(parts, dim=1)[:, cache[n_grid, n_shards, s,
+                                                   device]]
+        out[i] = _forecast(integrator, n_int_steps,
+                           segment)[:, left:left + size]
+    return out
+
+
+def obs_equivalents(blocks, n_shards: int, obs_idx, owners, home):
+    """The replicated ``[k, o]`` model equivalents ``x[:, obs_idx]`` on
+    ``home`` of an ensemble split as in :func:`ring_forecast` (``blocks``,
+    ``owners``): each block's members at the observations in its columns,
+    copied into place, then each process's part
+    (:func:`~tpu_assim_torch.parallel.multihost.all_blocks`), taken for
+    each ``[k, o]`` entry from the process that holds it. Copies, not
+    sums: exact. ``obs_idx`` lies on ``home``."""
+    template = next(b for b in blocks if b is not None)
+    rows, size = template.shape
+    n_rows = len(blocks) // n_shards
+    held_by = obs_idx // size                     # grid block of each obs
+    local = obs_idx - held_by * size
+    part = torch.zeros((n_rows * rows, obs_idx.shape[0]),
+                       dtype=template.dtype, device=home)
+    for i, block in enumerate(blocks):
+        if block is None:
+            continue
+        e, s = divmod(i, n_shards)
+        cand = block[:, local.to(block.device)].to(home)
+        mine = slice(e * rows, (e + 1) * rows)
+        part[mine] = torch.where(held_by == s, cand, part[mine])
+    if owners is None or len(set(owners)) == 1:
+        return part
+    ranks = sorted(set(owners))
+    parts = all_blocks([part if r == process_index() else None
+                        for r in ranks], ranks, home)
+    owner = torch.as_tensor(np.asarray(owners).reshape(n_rows, n_shards),
+                            device=home)
+    owner = owner.repeat_interleave(rows, dim=0)[:, held_by]       # [k, o]
+    ens_obs = parts[0]
+    for r, other in zip(ranks[1:], parts[1:]):
+        ens_obs = torch.where(owner == r, other, ens_obs)
+    return ens_obs
 
 
 def sharded_lienks_step(
@@ -143,26 +218,7 @@ def sharded_lienks_step(
     _check_selection(selection)
     integrate = integrator is not None and n_int_steps != 0
     reach = ring_reach(integrator, n_int_steps) if integrate else None
-    plans, on_device = {}, {}   # by grid size; by (grid size, shard, device)
-
-    def segments(pseudos, owners, n_grid, size):
-        """Each shard's pseudo-ensemble stepped on its ring segment."""
-        left, right = reach
-        if n_grid not in plans:
-            plans[n_grid] = segment_plan(n_grid, len(pseudos), left, right)
-        plan = plans[n_grid]
-        received = exchange_blocks(pseudos, [p[0] for p in plan], owners)
-        out = [None] * len(pseudos)
-        for s, blocks in enumerate(received):
-            if blocks is None:
-                continue
-            key = (n_grid, s, blocks[0].device)
-            if key not in on_device:
-                on_device[key] = torch.as_tensor(plan[s][1], device=key[2])
-            segment = torch.cat(blocks, dim=1)[:, on_device[key]]
-            out[s] = _forecast(integrator, n_int_steps,
-                               segment)[:, left:left + size]
-        return out
+    cache = {}              # ring_forecast's segment plans
 
     def step(state_data, obs_vals, obs_var, obs_idx, grid_coords,
              obs_coords):
@@ -173,8 +229,7 @@ def sharded_lienks_step(
         size = n_grid // len(shards)
         obs_vals, obs_var, obs_idx = (
             x.to(home) for x in (obs_vals, obs_var, obs_idx))
-        held_by = obs_idx // size            # the shard of each observation
-        mean, perts, eye, weights, taper, local_idx = ({} for _ in range(6))
+        mean, perts, eye, weights, taper = ({} for _ in range(5))
         for s in mine:
             device, cols = shards[s]
             # contiguous, as host_local_to_global makes a block: a
@@ -189,31 +244,9 @@ def sharded_lienks_step(
                 obs_coords.to(device), data.dtype, device)
             eye[s] = torch.eye(k, dtype=data.dtype, device=device)
             weights[s] = eye[s].expand(size, k, k)
-            local_idx[s] = (obs_idx - s * size).clamp(0, size - 1).to(device)
-        ranks, held_by_rank = [process_index()], None
-        if owners is not None:
-            ranks = sorted(set(owners))
-            held_by_rank = torch.as_tensor(owners, device=home)[held_by]
 
         def whole(pseudos):
             return torch.cat(all_blocks(pseudos, owners, home), dim=1)
-
-        def obs_equivalents(pseudos):
-            """The replicated [k, o] model equivalents: each shard's own
-            observations copied into place, then each process's."""
-            part = None
-            for s in mine:
-                cand = pseudos[s][:, local_idx[s]].to(home)
-                part = cand if part is None else torch.where(
-                    held_by == s, cand, part)
-            if owners is None:
-                return part
-            parts = all_blocks([part if r == process_index() else None
-                                for r in ranks], ranks, home)
-            ens_obs = parts[0]
-            for r, other in zip(ranks[1:], parts[1:]):
-                ens_obs = torch.where(held_by_rank == r, other, ens_obs)
-            return ens_obs
 
         for _ in range(n_outer):
             pseudos = [None] * len(shards)
@@ -221,14 +254,16 @@ def sharded_lienks_step(
                 pseudos[s] = _lienks_pseudo(mean[s], perts[s], weights[s],
                                             kind, epsilon, eye[s])
             if integrate and reach is not None:
-                pseudos = segments(pseudos, owners, n_grid, size)
+                pseudos = ring_forecast(integrator, n_int_steps, pseudos,
+                                        owners, n_grid, len(shards), cache)
             elif integrate:
                 ring = _forecast(integrator, n_int_steps, whole(pseudos))
                 pseudos = [None if shard is None else
                            ring[:, shard[1]].to(shard[0])
                            for shard in shards]
             if obs_operator is None:
-                ens_obs = obs_equivalents(pseudos)
+                ens_obs = obs_equivalents(pseudos, len(shards), obs_idx,
+                                          owners, home)
             else:
                 ens_obs = obs_operator(whole(pseudos))
             perts_o, innov = _normalized_obs_space(ens_obs, obs_vals,

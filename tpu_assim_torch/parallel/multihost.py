@@ -52,6 +52,7 @@ __all__ = [
     "process_hosts",
     "process_index",
     "process_info",
+    "resplit",
     "shutdown_multihost",
 ]
 
@@ -479,3 +480,58 @@ def host_local_to_global(mesh: Mesh, local_block, axis=-1,
         device = mesh.devices[_position(mesh, axes, key)]
         blocks[key] = local_block[tuple(index)].to(device).contiguous()
     return GlobalTensor(mesh, shape, dims, axes, blocks)
+
+
+def _bounds(x: GlobalTensor, key):
+    """``(start, stop)`` of a shard's block along every dim."""
+    return [(0, n) if s.start is None else (s.start, s.stop)
+            for s, n in zip(x.slices(key), x.shape)]
+
+
+def _overlap(a, b):
+    """The intersection of two blocks' bounds, or None."""
+    out = [(max(x[0], y[0]), min(x[1], y[1])) for x, y in zip(a, b)]
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def _within(region, bounds):
+    """``region`` (global bounds) as an index into a block at ``bounds``."""
+    return tuple(slice(lo - b[0], hi - b[0])
+                 for (lo, hi), b in zip(region, bounds))
+
+
+def resplit(x: GlobalTensor, layout: GlobalTensor) -> GlobalTensor:
+    """``x`` split as ``layout`` (a GlobalTensor of the same shape and mesh;
+    its blocks are not read). Each block of this process is assembled by
+    copies from the blocks of ``x`` that overlap it; another process's
+    blocks arrive by ``torch.distributed`` transfers, once for each
+    receiving process. Bit for bit; ``x`` itself when the splits agree. A
+    collective of every process of the mesh."""
+    if x.matches(layout.dims, layout.axes):
+        return x
+    src_keys = x.keys()
+    src_bounds = [_bounds(x, key) for key in src_keys]
+    owners = [x.owner(key) for key in src_keys]
+    blocks = [x.blocks.get(key) for key in src_keys]
+    plan = {}
+    for key in layout.keys():
+        dst = _bounds(layout, key)
+        plan[key] = [(i, region) for i, src in enumerate(src_bounds)
+                     if (region := _overlap(src, dst)) is not None]
+    pairs = sorted({(i, layout.owner(key)) for key, parts in plan.items()
+                    for i, _ in parts if owners[i] != layout.owner(key)})
+    template = _template(blocks)
+    received = _transfer(pairs, blocks, owners, template) if pairs else {}
+    rank, out = process_index(), {}
+    for key, parts in plan.items():
+        if layout.owner(key) != rank:
+            continue
+        device, dst = layout.device(key), _bounds(layout, key)
+        block = torch.empty(layout.block_shape(), dtype=template.dtype,
+                            device=device)
+        for i, region in parts:
+            src = blocks[i] if blocks[i] is not None else received[i]
+            block[_within(region, dst)] = src[
+                _within(region, src_bounds[i])].to(device)
+        out[key] = block
+    return GlobalTensor(x.mesh, x.shape, layout.dims, layout.axes, out)
