@@ -11,8 +11,9 @@ pallas), the LETKF class API, the 2-D LETKF (fused2d and its x-strips), the
 localized kernelized ETKF (two-sided Jacobi eigh) and the obs-sharded halo
 LETKF over 8 virtual shards of the card (halo exchange kernel K8), also
 across two processes (K8 over CUDA IPC), and the TerrSysMP (COSMO/CLM)
-adapters at COSMO-DE width at the reference benchmark shapes, checks them
-against f64 oracles, and times the kernels.
+adapters at COSMO-DE width, and bench.py's configs 1, 5, 10 and 12 at
+its sizes, at the reference benchmark shapes, checks them against f64
+oracles, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,18 @@ Phases (one line each; any failure exits non-zero):
     unsharded make_cycle_step (1e-6 of max, the same NaN columns; whether
     bit for bit) and its f64 step (1e-5); times in turns with the
     unsharded step, torch.profiler windows and the host's launches a step
+ 34 (last) bench.py's configs 1, 5, 10 and 12 at its sizes and seeds:
+    the global ETKF (ens 20, grid 40, 20 obs; no kernel), fused1d at ens
+    100, grid 2^20, 2^16 obs with the 4-point-mean obs operator (K1 x 1),
+    4 stacked obs times (tied coordinates, nb 32, the auto degree; K1 x
+    1) and a correlated [1000, 1000] R whitened by its Cholesky factor
+    (K1 x 1; the f32 whitened perturbations against f64 too): each
+    against the port's f64 run of its path on the card and the fused1d
+    ones against the exact f64 eigh on 1024 sampled columns (1e-5 of
+    max, no NaN column), K1 against its plain version on the inputs the
+    path gave it, the geometry-bound analysis bit for bit; times of a
+    call and torch.profiler windows; K1's launches a call go into the
+    kernels line (``launches_per_call``)
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's or K4's register route, of K2, of K5, of K6's register
@@ -139,9 +152,10 @@ analysis, the cycle and the pallas analysis.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 In that line ``ms`` is the time a call between CUDA events (phases 7, 11,
-16, 20, 24; K8's is its device time, phase 27), and ``device_ms`` the
+16, 20, 24; K8's is its device time, phase 27), ``device_ms`` the
 kernel's own device time by torch.profiler where it is taken (K1, K2,
-K4, K8), else null.
+K4, K8), else null, and K1's ``launches_per_call`` its launches a call
+on each path of phase 34.
 Imports nothing of JAX.
 """
 
@@ -168,10 +182,12 @@ from tpu_assim_torch.analysis import (
     _strip_plan_2d,
     _with_time,
     make_cycle_step,
+    make_etkf_analysis,
     make_letkf_analysis,
     make_lienks_step,
     make_strip_letkf_2d,
 )
+from tpu_assim_torch import analysis as port_analysis
 from tpu_assim_torch import (
     KETKF,
     LETKF,
@@ -1159,6 +1175,7 @@ def main():
     ref33 = entry_phase(dev, gpu, loc, w)
     multiprocess_phase(dev, gpu, ref26, ref32, ref33)
     terrsysmp_phase(dev, gpu)
+    bench_paths_phase(dev, gpu, loc, kinds)
 
     sources = {
         "window1d": ("tpu_assim_torch/csrc/letkf_window1d.cu",
@@ -1185,7 +1202,9 @@ def main():
          "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
          "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
-         "device_ms": t.get("device_ms")}
+         "device_ms": t.get("device_ms"),
+         **({"launches_per_call": t["launches_per_call"]}
+            if "launches_per_call" in t else {})}
         for name, t in kinds.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3781,6 +3800,239 @@ def terrsysmp_phase(dev, gpu):
         f"dataset made {s_make:.2f} s, preprocess_cosmo {s_pre:.2f} s, "
         f"assimilate {s_assim:.2f} s, postprocess_cosmo {s_post:.2f} s, "
         f"CLM make + round trip {s_clm:.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+
+# -- 34. bench.py configs 1, 5, 10 and 12 -------------------------------------
+
+SAMPLE34 = 1024  # grid columns of the exact f64 eigh analysis a path
+DEGREE5 = 16     # make_letkf_analysis's default cheb_degree, which bench.py's
+                 # config 5 takes
+
+
+def stencil_4pt(obs_idx, g):
+    """bench.py:337-339: each observation the mean of the 4 columns from its
+    own on, wrapping round the grid's end; [o, 4] int32."""
+    return np.stack([(obs_idx + s) % g for s in range(4)],
+                    axis=1).astype(np.int32)
+
+
+def auto_degree_1d(state, obs_idx, nb, inf=INF):
+    """bench.py:544-549's auto Chebyshev degree: the spectral bound from the
+    largest sum of ||z_o||^2 over ``nb`` consecutive observations of
+    ``obs_idx`` (sorted by coordinate), through ``cheb_degree_for``."""
+    ens_obs = state[:, obs_idx]
+    znorm = (ens_obs - ens_obs.mean(0)) ** 2
+    cs = np.concatenate([[0.0], np.cumsum(znorm.sum(0))])
+    width = min(nb, len(obs_idx))
+    tr_max = float((cs[width:] - cs[:-width]).max())
+    return k1.cheb_degree_for(1.0 + tr_max / ((state.shape[0] - 1) / inf))
+
+
+def bench_config(name):
+    """bench.py's inputs of config ``name`` (1, 5, 10 or 12) from its seeds,
+    as numpy: ``(workload, nb, degree, stencil)``; the workload
+    ``(state, obs_vals, obs_var, obs_idx, grid_coords, obs_coords)``, with
+    ``obs_var`` the [o, o] correlated R for config 12; ``nb``, ``degree``
+    and ``stencil`` None where the path takes none."""
+    if name == 1:                                         # bench.py:226-238
+        return build_workload(20, 40, 20), None, None, None
+    if name == 5:                                         # bench.py:323-347
+        w = build_workload(100, 1 << 20, 1 << 16)
+        nb = exact_nb(k1.max_in_support_1d(w[5][:, 0], w[4][:, 0], RADIUS))
+        return w, nb, DEGREE5, stencil_4pt(w[3], 1 << 20)
+    w = build_workload(40, 10000, 1000)
+    if name == 10:                                        # bench.py:522-565
+        rnd = np.random.RandomState(7)
+        obs = np.repeat(w[5], 4, axis=0)                  # sorted, tied
+        idx = np.repeat(w[3], 4)
+        w = (w[0], rnd.normal(size=4000).astype("f4"),
+             np.ones(4000, dtype="f4"), idx, w[4], obs)
+        nb = exact_nb(k1.max_in_support_1d(obs[:, 0], w[4][:, 0], RADIUS))
+        return w, nb, auto_degree_1d(w[0], idx, nb), None
+    ox = w[5][:, 0]                                       # bench.py:639-668
+    corr = np.exp(-np.abs(ox[:, None] - ox[None, :]) / 15.0).astype("f4")
+    corr += np.eye(1000, dtype="f4") * 0.1
+    nb = exact_nb(k1.max_in_support_1d(ox, w[4][:, 0], RADIUS))
+    return (w[0], w[1], corr) + tuple(w[3:]), nb, DEGREE, None
+
+
+def k1_calls(fn):
+    """``fn()`` with analysis.py's K1 wrapper recording the arguments of
+    each call: ``(result, [(args, kwargs), ...])``."""
+    seen = []
+    real = port_analysis.letkf_window_analysis_fused
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    port_analysis.letkf_window_analysis_fused = spy
+    try:
+        return fn(), seen
+    finally:
+        port_analysis.letkf_window_analysis_fused = real
+
+
+def k1_plain(args, kw):
+    """K1's plain version on the arguments of one recorded K1 call."""
+    return k1.window_analysis_plain(
+        *args[:4], args[4][None], args[5][None], *args[6:8],
+        ens_size=args[8], nb=kw["nb"], degree=kw["degree"],
+        epsilon=kw["epsilon"], taper=kw["taper"], strict=kw["strict"])[0]
+
+
+def f64_obs_space(w, stencil, dev):
+    """The path's prologue in f64 on ``dev``: the state, H x (point
+    observations or the 4-point mean) and the R^{-1/2}-normalized
+    perturbations and innovations (the Cholesky whitening for an [o, o]
+    R)."""
+    state, vals, var = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                        for a in w[:3])
+    if stencil is None:
+        ens_obs = state[:, torch.as_tensor(w[3], device=dev).long()]
+    else:
+        ens_obs = state[:, torch.as_tensor(stencil, device=dev).long()].mean(-1)
+    perts, innov = _normalized_obs_space(ens_obs, vals, var)
+    return state, ens_obs, perts, innov
+
+
+def fused1d_f64(loc, w, nb, degree, state, perts, innov, dev,
+                chunk=1 << 18):
+    """The fused1d path's own math in f64 on ``dev``: K1's plain version over
+    the f64 prologue's outputs, ``chunk`` grid columns at a time."""
+    obs_x = torch.as_tensor(w[5][:, 0], dtype=torch.float64, device=dev)
+    grid_x = torch.as_tensor(w[4][:, 0], dtype=torch.float64, device=dev)
+    mean = state.mean(0)
+    sp = state - mean
+    k = state.shape[0]
+    return torch.cat([k1.window_analysis_plain(
+        perts, innov, obs_x, grid_x[i:i + chunk], sp[None, :, i:i + chunk],
+        mean[None, i:i + chunk], (k - 1) / INF, RADIUS, ens_size=k, nb=nb,
+        degree=degree, epsilon=float(loc.epsilon), taper=k1.taper_name(loc),
+        strict=True)[0] for i in range(0, sp.shape[1], chunk)], dim=1)
+
+
+def eigh_f64_columns(loc, w, state, ens_obs, cols, dev, chunk=64):
+    """The exact f64 analysis (dense taper, eigh) of the grid columns
+    ``cols`` on ``dev``, from the f64 obs equivalents ``ens_obs``."""
+    analyse = make_letkf_analysis(loc, INF, chunksize=chunk, method="eigh",
+                                  obs_operator=lambda _: ens_obs)
+    cols_t = torch.as_tensor(cols, device=dev)
+    f64 = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+           for a in (w[1], w[2], w[4][cols], w[5])]
+    return analyse(state[:, cols_t], f64[0], f64[1], None, f64[2], f64[3])
+
+
+def fused1d_path(name, dev, gpu, loc):
+    """Phase 34 for a fused1d config of bench.py (5, 10 or 12): the
+    analysis as bench.py builds it (six arguments), its K1 launches, K1
+    against its plain version on the inputs the path gave it, the result
+    against the path's f64 run (within TOL of max, no NaN column) and
+    against the exact f64 eigh analysis on SAMPLE34 sampled columns (both
+    within TOL of max); the geometry-bound analysis bit for bit the same, timed.
+    Returns K1's launches a call."""
+    w, nb, degree, stencil = bench_config(name)
+    t0 = time.perf_counter()
+    wt = [torch.as_tensor(a, device=dev) for a in w]
+    h = None
+    if stencil is not None:                     # on the card once
+        sten = torch.as_tensor(stencil, device=dev).long()
+
+        def h(x):
+            return x[:, sten].mean(-1)
+
+    analyse = make_letkf_analysis(loc, INF, method="fused1d", max_obs=nb,
+                                  cheb_degree=degree, obs_operator=h)
+    (out, calls), launches = counted(k1_calls, lambda: analyse(*wt))
+    check(launches == {"window1d": 1} and len(calls) == 1,
+          f"config {name}: launches {launches}, K1 calls {len(calls)}")
+    args, kw = calls[0]
+    # inputs read once, the output (the size of sp) written once
+    k1_bound = bound(nbytes(*args[:6]) + nbytes(args[4]),
+                     w[0].shape[1] * cheb_flops(w[0].shape[0], nb, 1, degree))
+    err_plain, rel_plain = compare(out, k1_plain(args, kw),
+                                   f"config {name}: K1 vs plain")
+    notes = [f"K1 vs its plain version on the path's inputs {err_plain!r} "
+             f"(rel {rel_plain!r})"]
+    state64, ens_obs64, perts64, innov64 = f64_obs_space(w, stencil, dev)
+    if w[2].ndim == 2:
+        e_p, r_p = compare(args[0], perts64,
+                           f"config {name}: whitened perturbations")
+        e_i, r_i = compare(args[1], innov64,
+                           f"config {name}: whitened innovations")
+        notes.append(f"f32 whitened perturbations vs f64 {e_p!r} (rel "
+                     f"{r_p!r}), innovations {e_i!r} (rel {r_i!r})")
+    del args, calls
+    ref = fused1d_f64(loc, w, nb, degree, state64, perts64, innov64, dev)
+    err64, rel64 = compare(out, ref, f"config {name}: vs its f64 run")
+    bad = int(nan_columns(out).sum())
+    check(bad == 0, f"config {name}: {bad} NaN columns")
+    del ref, perts64, innov64
+    cols = np.sort(np.random.RandomState(SEED + 34).choice(
+        w[0].shape[1], size=SAMPLE34, replace=False))
+    exact = eigh_f64_columns(loc, w, state64, ens_obs64, cols, dev)
+    _, rel_eigh = compare(out[:, torch.as_tensor(cols, device=dev)], exact,
+                          f"config {name}: vs the exact f64 eigh")
+    del state64, ens_obs64, exact
+    notes.append(f"vs the path's f64 run {err64!r} (rel {rel64!r}, budget "
+                 f"{TOL}), {bad} NaN columns; vs the exact f64 eigh on "
+                 f"{SAMPLE34} sampled columns rel {rel_eigh!r}")
+    fast = make_letkf_analysis(
+        loc, INF, method="fused1d", max_obs=nb, cheb_degree=degree,
+        obs_operator=h,
+        geometry=(None if stencil is not None else w[3], w[4], w[5]))
+    same_bits(fast(*wt[:3]), out, f"config {name}: geometry-bound")
+    del out
+    reps, inner = (10, 3) if name == 5 else (20, 10)
+    ms_fast = median_ms(lambda: fast(*wt[:3]), reps=reps, inner=inner)
+    ms_six = median_ms(lambda: analyse(*wt), reps=5, inner=1, warmup=1)
+    prof, dev_k1 = kernel_profile(f"config {name}",
+                                  lambda: fast(*wt[:3]), K1_KERNELS,
+                                  wall_ms=ms_fast)
+    plan = k1.window1d_plan(w[0].shape[0], nb, 1, degree, w[0].shape[1])
+    log(34, f"config {name} (ens {w[0].shape[0]}, grid {w[0].shape[1]}, obs "
+        f"{w[1].shape[0]}, nb {nb}, degree {degree}; K1 {plan['route']} "
+        f"route, {plan['cols_per_warp']} columns a warp, {plan['warps']} "
+        f"warps a block, {plan['smem']} B shared): launches {launches} a "
+        f"call; " + "; ".join(notes) + f"; geometry-bound bit for bit the "
+        f"six-argument call. Times: {ms_fast!r} ms a call geometry-bound "
+        f"(median of {reps} x {inner}), {ms_six!r} ms with the host checks "
+        f"of the six-argument call (median of 5), K1 {dev_k1!r} ms of "
+        f"device time, {dev_k1 / k1_bound[0]:.1f}x its bound "
+        f"{k1_bound[0]!r} ms ({k1_bound[1]}); {prof}; phase part "
+        f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return launches["window1d"]
+
+
+def bench_paths_phase(dev, gpu, loc, kinds):
+    """Phase 34: bench.py's configs 1 (global ETKF: no kernel), 5 (ens 100,
+    grid 2^20, 2^16 obs, the 4-point-mean obs operator), 10 (4 stacked obs
+    times, tied coordinates, the auto degree) and 12 (a correlated [1000,
+    1000] R, Cholesky-whitened) at bench.py's sizes and seeds, each
+    against the port's f64 run of the same path on the card; K1's launches
+    a call go into the kernels line. No cut: config 5 is timed in 10
+    samples of 3 calls, the others in 20 of 10."""
+    t_phase = time.perf_counter()
+    w, _, _, _ = bench_config(1)
+    wt = [torch.as_tensor(a, device=dev) for a in w]
+    etkf = make_etkf_analysis(INF)
+    out, launches = counted(etkf, *wt)
+    check(launches == {}, f"config 1: launches {launches}")
+    ref = etkf(*(t.double() if t.is_floating_point() else t for t in wt))
+    err, rel = compare(out, ref, "config 1: vs its f64 run")
+    bad = int(nan_columns(out).sum())
+    check(bad == 0, f"config 1: {bad} NaN columns")
+    ms = median_ms(lambda: etkf(*wt))
+    log(34, f"config 1 (global ETKF, ens 20, grid 40, obs 20): no kernel "
+        f"launched; vs its f64 run {err!r} (rel {rel!r}, budget {TOL}), "
+        f"{bad} NaN columns; {ms!r} ms a call (median of 20 x 10); "
+        + profile_note("config 1", lambda: etkf(*wt)) + f" [{gpu}]")
+    per_call = {"config 1": 0}
+    for name in (12, 10, 5):
+        per_call[f"config {name}"] = fused1d_path(name, dev, gpu, loc)
+    kinds["window1d"]["launches_per_call"] = per_call
+    log(34, f"K1 launches a call {per_call}; phase 34 took "
         f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
 
 
