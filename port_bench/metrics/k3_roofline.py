@@ -1,0 +1,7 @@
+"""K3's share of its roofline (work/k3.py) over its device time a step."""
+
+from port_bench.metrics._roofline import share
+
+
+def read(table):
+    return share(table, "k3")
