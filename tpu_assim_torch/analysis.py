@@ -61,6 +61,7 @@ from tpu_assim_torch.ops.localization import (
     select_neighborhoods,
     taper_support_z,
 )
+from tpu_assim_torch.utils.profiling import span
 
 __all__ = ["make_cycle_step", "make_etkf_analysis", "make_letkf_analysis",
            "make_lienks_step", "make_strip_letkf_2d"]
@@ -116,13 +117,14 @@ def _check_selection(selection: str) -> None:
 def _forecast(integrator, n_steps: int, state_data):
     """``n_steps`` of ``integrator``: the fused RK4 kernel wherever
     :func:`supports_fused_rk4` holds, else the integrator's own steps."""
-    if supports_fused_rk4(integrator, state_data.shape,
-                          state_data.element_size()):
-        return fused_rk4_steps(integrator.model, state_data.contiguous(),
-                               integrator.dt, n_steps)
-    for _ in range(n_steps):
-        state_data = integrator.integrate(state_data)
-    return state_data
+    with span("forecast"):
+        if supports_fused_rk4(integrator, state_data.shape,
+                              state_data.element_size()):
+            return fused_rk4_steps(integrator.model, state_data.contiguous(),
+                                   integrator.dt, n_steps)
+        for _ in range(n_steps):
+            state_data = integrator.integrate(state_data)
+        return state_data
 
 
 def make_letkf_analysis(
@@ -350,8 +352,9 @@ def make_letkf_analysis(
                 on_device[dev] = tuple(
                     None if a is None else torch.as_tensor(a, device=dev)
                     for a in (g_idx, g_grid, g_obs))
-            return _impl(state_data, obs_vals, obs_var, *on_device[dev],
-                         block)
+            with span("letkf.analysis"):
+                return _impl(state_data, obs_vals, obs_var, *on_device[dev],
+                             block)
 
         return analysis_fn_static
 
@@ -361,8 +364,9 @@ def make_letkf_analysis(
         if method in ("fused1d", "fused2d"):
             block = _host_harden(obs_coords.detach().cpu().numpy(),
                                  grid_coords.detach().cpu().numpy())
-        return _impl(state_data, obs_vals, obs_var, obs_idx, grid_coords,
-                     obs_coords, block)
+        with span("letkf.analysis"):
+            return _impl(state_data, obs_vals, obs_var, obs_idx,
+                         grid_coords, obs_coords, block)
 
     return analysis_fn
 
@@ -631,7 +635,9 @@ def make_cycle_step(
                                   **analysis_opts)
 
     def step(state_data, *args):
-        return analyse(_forecast(integrator, n_int_steps, state_data), *args)
+        with span("cycle.step"):
+            return analyse(_forecast(integrator, n_int_steps, state_data),
+                           *args)
 
     return step
 
@@ -695,27 +701,29 @@ def make_lienks_step(
 
     def step(state_data, obs_vals, obs_var, obs_idx, grid_coords,
              obs_coords):
-        k, g = state_data.shape
-        mean = torch.mean(state_data, dim=0)
-        perts = state_data - mean[None, :]                     # [k, g]
-        dtype, device = state_data.dtype, state_data.device
-        idx, sqrt_w, poisoned = _lienks_taper(
-            localization, max_obs, selection, max_obs_strict, grid_coords,
-            obs_coords, dtype, device)
-        eye = torch.eye(k, dtype=dtype, device=device)
-        weights = eye.expand(g, k, k)
-        for _ in range(n_outer):
-            pseudo = _forward(_lienks_pseudo(mean, perts, weights, kind,
-                                             epsilon, eye))
-            if obs_operator is None:
-                ens_obs = pseudo[:, obs_idx]                   # [k, o]
-            else:
-                ens_obs = obs_operator(pseudo)
-            perts_o, innov = _normalized_obs_space(ens_obs, obs_vals,
-                                                   obs_var)
-            weights = _lienks_inner(weights, perts_o, innov, idx, sqrt_w,
-                                    kind, tau, epsilon)
-        return _lienks_apply(mean, perts, weights, poisoned)
+        with span("lienks.step"):
+            k, g = state_data.shape
+            mean = torch.mean(state_data, dim=0)
+            perts = state_data - mean[None, :]                 # [k, g]
+            dtype, device = state_data.dtype, state_data.device
+            idx, sqrt_w, poisoned = _lienks_taper(
+                localization, max_obs, selection, max_obs_strict,
+                grid_coords, obs_coords, dtype, device)
+            eye = torch.eye(k, dtype=dtype, device=device)
+            weights = eye.expand(g, k, k)
+            for _ in range(n_outer):
+                with span("lienks.outer"):
+                    pseudo = _forward(_lienks_pseudo(mean, perts, weights,
+                                                     kind, epsilon, eye))
+                    if obs_operator is None:
+                        ens_obs = pseudo[:, obs_idx]           # [k, o]
+                    else:
+                        ens_obs = obs_operator(pseudo)
+                    perts_o, innov = _normalized_obs_space(ens_obs, obs_vals,
+                                                           obs_var)
+                    weights = _lienks_inner(weights, perts_o, innov, idx,
+                                            sqrt_w, kind, tau, epsilon)
+            return _lienks_apply(mean, perts, weights, poisoned)
 
     return step
 
@@ -730,20 +738,22 @@ def _lienks_taper(localization, max_obs, selection, max_obs_strict,
     ``(idx [g, nb] or None, sqrt_w [g, nb] (or [g, o] dense), poisoned [g]
     or None)``. ``poisoned`` marks the columns the strict window poisons;
     their weights are zero, so that no inner SVD sees a NaN."""
-    grid_info = _with_time(grid_coords)
-    obs_info = _with_time(obs_coords)
-    if localization is not None and max_obs is not None:
-        idx, w_nbh = select_neighborhoods(localization, grid_info, obs_info,
-                                          max_obs, selection, max_obs_strict)
-        sqrt_w = safe_sqrt_keep_nan(w_nbh).to(dtype)          # [g, nb]
-        poisoned = torch.isnan(sqrt_w).any(-1)                # [g]
-        return idx, torch.where(poisoned[:, None], 0.0, sqrt_w), poisoned
-    if localization is None:
-        w_loc = torch.ones(grid_info.shape[0], obs_info.shape[0],
-                           dtype=dtype, device=device)
-    else:
-        w_loc = localization.taper_weights(grid_info, obs_info).to(dtype)
-    return None, safe_sqrt(w_loc), None                        # [g, o]
+    with span("lienks.taper"):
+        grid_info = _with_time(grid_coords)
+        obs_info = _with_time(obs_coords)
+        if localization is not None and max_obs is not None:
+            idx, w_nbh = select_neighborhoods(localization, grid_info,
+                                              obs_info, max_obs, selection,
+                                              max_obs_strict)
+            sqrt_w = safe_sqrt_keep_nan(w_nbh).to(dtype)      # [g, nb]
+            poisoned = torch.isnan(sqrt_w).any(-1)            # [g]
+            return idx, torch.where(poisoned[:, None], 0.0, sqrt_w), poisoned
+        if localization is None:
+            w_loc = torch.ones(grid_info.shape[0], obs_info.shape[0],
+                               dtype=dtype, device=device)
+        else:
+            w_loc = localization.taper_weights(grid_info, obs_info).to(dtype)
+        return None, safe_sqrt(w_loc), None                    # [g, o]
 
 
 def _lienks_pseudo(mean, perts, weights, kind, epsilon, eye):
@@ -760,17 +770,18 @@ def _lienks_inner(weights, perts_o, innov, idx, sqrt_w, kind, tau,
     obs-space perturbations [k, o] and innovations [o] (replicated over
     the columns) scaled by each column's sqrt taper, through the
     transform or bundle step; returns the new weights [g, k, k]."""
-    if idx is not None:
-        scaled_perts = (perts_o[:, idx].permute(1, 0, 2)
-                        * sqrt_w[:, None, :])                  # [g, k, nb]
-        scaled_obs = (innov[idx] * sqrt_w)[:, None, :]
-    else:
-        scaled_perts = perts_o[None, :, :] * sqrt_w[:, None, :]
-        scaled_obs = (innov[None, :] * sqrt_w)[:, None, :]
-    if kind == "bundle":
-        return ienks_bundle_step(weights, scaled_perts, scaled_obs, tau,
-                                 epsilon)
-    return ienks_transform_step(weights, scaled_perts, scaled_obs, tau)
+    with span("lienks.inner"):
+        if idx is not None:
+            scaled_perts = (perts_o[:, idx].permute(1, 0, 2)
+                            * sqrt_w[:, None, :])              # [g, k, nb]
+            scaled_obs = (innov[idx] * sqrt_w)[:, None, :]
+        else:
+            scaled_perts = perts_o[None, :, :] * sqrt_w[:, None, :]
+            scaled_obs = (innov[None, :] * sqrt_w)[:, None, :]
+        if kind == "bundle":
+            return ienks_bundle_step(weights, scaled_perts, scaled_obs, tau,
+                                     epsilon)
+        return ienks_transform_step(weights, scaled_perts, scaled_obs, tau)
 
 
 def _lienks_apply(mean, perts, weights, poisoned):

@@ -23,6 +23,7 @@ from torch.autograd.function import once_differentiable
 
 from tpu_assim_torch.models.integration import RK4Integrator
 from tpu_assim_torch.models.lorenz96 import Lorenz96
+from tpu_assim_torch.utils.profiling import span
 
 __all__ = ["LAUNCHES", "MAX_STEPS", "RK4Plan", "TILE_P", "fused_rk4_steps",
            "rk4_plan", "rk4_steps_plain", "rk4_tiles_plain",
@@ -159,11 +160,12 @@ def _launch_rk4(model, state, dt, n_steps):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         for launch in range(plan.launches):
             dst = bufs[(plan.launches - 1 - launch) % 2]
-            err = lib.rk4_l96_launch(
-                src.data_ptr(), dst.data_ptr(), state.numel() // g, g,
-                plan.tiles, plan.left, plan.stride,
-                min(plan.steps, n_steps - launch * plan.steps), float(dt),
-                float(model.forcing), stream)
+            with span("kernel.rk4_l96"):
+                err = lib.rk4_l96_launch(
+                    src.data_ptr(), dst.data_ptr(), state.numel() // g, g,
+                    plan.tiles, plan.left, plan.stride,
+                    min(plan.steps, n_steps - launch * plan.steps),
+                    float(dt), float(model.forcing), stream)
             if err != 0:
                 raise RuntimeError("rk4_l96 kernel launch failed: "
                                    + lib.rk4_l96_error_string(err).decode())

@@ -62,6 +62,7 @@ from tpu_assim_torch.ops.localization import (
     safe_sqrt,
     taper_support_z,
 )
+from tpu_assim_torch.utils.profiling import span
 
 __all__ = [
     "LAUNCHES",
@@ -590,7 +591,7 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
     # the support bound rounds to f32 as f32(z*) * f32(radius), as on the TPU
     sup = float(np.float32(taper_support_z(taper, epsilon))
                 * np.float32(radius))
-    with torch.cuda.device(device):
+    with span("kernel.window1d"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.window1d_launch(
             perts.data_ptr(), innov.data_ptr(), obs_x.data_ptr(),

@@ -35,6 +35,8 @@ import functools
 
 import torch
 
+from tpu_assim_torch.utils.profiling import span
+
 __all__ = ["LAUNCHES", "eigh_from_svd", "eigh_svd_jacobi", "svd_jacobi",
            "svd_jacobi_plain", "svd_jacobi_plan", "svd_pullback"]
 
@@ -197,7 +199,7 @@ def _launch_svd(a, sweeps):
     v = torch.empty_like(u)
     sig = torch.empty(b, kp, dtype=a.dtype, device=a.device)
     finfo = torch.finfo(torch.float32)
-    with torch.cuda.device(a.device):
+    with span("kernel.svd_jacobi"), torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.svd_jacobi_launch(
             a.data_ptr(), u.data_ptr(), sig.data_ptr(), v.data_ptr(), b, k,

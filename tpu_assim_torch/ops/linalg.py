@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpu_assim_torch.utils.profiling import span
+
 __all__ = [
     "diagonal_add",
     "eigh_psd",
@@ -118,16 +120,17 @@ def svd(tensor: torch.Tensor, reg_value=0.0,
     differentiable through one pullback, finite on exactly tied singular
     values (:class:`_SquareSVD`).
     """
-    if _takes_jacobi(tensor, use_jacobi):
-        from tpu_assim_torch.ops.cuda.svd import svd_jacobi
+    with span("linalg.svd"):
+        if _takes_jacobi(tensor, use_jacobi):
+            from tpu_assim_torch.ops.cuda.svd import svd_jacobi
 
-        u, s, v = svd_jacobi(tensor)
-    elif tensor.shape[-1] == tensor.shape[-2]:
-        u, s, v = _SquareSVD.apply(tensor)
-    else:
-        u, s, vh = torch.linalg.svd(tensor, full_matrices=False)
-        v = vh.transpose(-1, -2)
-    return u, s + reg_value, v
+            u, s, v = svd_jacobi(tensor)
+        elif tensor.shape[-1] == tensor.shape[-2]:
+            u, s, v = _SquareSVD.apply(tensor)
+        else:
+            u, s, vh = torch.linalg.svd(tensor, full_matrices=False)
+            v = vh.transpose(-1, -2)
+        return u, s + reg_value, v
 
 
 def rev_svd(u: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ from tpu_assim_torch.utils.profiling import (
     phase,
     report,
     reset,
+    span,
     timings,
     trace,
 )
@@ -47,6 +48,7 @@ __all__ = [
     "save_state",
     "save_weights",
     "save_weights_sharded",
+    "span",
     "timings",
     "trace",
 ]

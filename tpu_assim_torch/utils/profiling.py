@@ -2,7 +2,13 @@
 Tracing and profiling utilities (the port of
 :mod:`tpu_assim.utils.profiling`): named phase timers with a process-wide
 registry, a ``torch.profiler`` trace context for device timelines, and
-phase spans (``torch.profiler.record_function``) that show up in it.
+spans (``torch.profiler.record_function``) that show up in it.
+
+The program's own layer boundaries open a :func:`span`
+(``tpu_assim_torch.<name>`` in a trace): the cycle and IEnKS steps, the
+forecast, the LETKF analysis, the IEnKS taper, outer iteration and inner
+step, the SVD dispatch, and each launch of kernels K1, K2 and K3. A span
+records only while a profiler runs; otherwise it costs one check.
 
 Usage::
 
@@ -30,17 +36,37 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["phase", "report", "reset", "timings", "trace"]
+__all__ = ["phase", "report", "reset", "span", "timings", "trace"]
 
+SPAN_PREFIX = "tpu_assim_torch."
+_NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _totals: Dict[str, float] = defaultdict(float)
 _counts: Dict[str, int] = defaultdict(int)
 
 
+def _recorded(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs,
+    else the shared null context: with no profiler, one check and nothing
+    entered."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def span(name: str):
+    """The program's span ``tpu_assim_torch.<name>``: recorded in the
+    profiler's trace, beside the device operations it launches, while a
+    profiler runs (``torch.profiler.profile``, :func:`trace`); with none
+    running it returns a shared :class:`contextlib.nullcontext`."""
+    return _recorded(SPAN_PREFIX + name)
+
+
 @contextlib.contextmanager
 def phase(name: str, block: bool = False) -> Iterator[None]:
     """Time a named phase, accumulating over calls, as a
-    ``torch.profiler.record_function`` span (named in traces too).
+    ``torch.profiler.record_function`` span (named in traces too) while a
+    profiler runs.
 
     CUDA work is asynchronous: without ``block`` the timer measures what
     the host spent queueing it. With ``block=True`` it waits for the card's
@@ -48,7 +74,7 @@ def phase(name: str, block: bool = False) -> Iterator[None]:
     in use.
     """
     start = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with _recorded(name):
         yield
         if block and torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
