@@ -142,13 +142,15 @@ Phases (one line each; any failure exits non-zero):
     kernels line (``launches_per_call``)
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
-spill of K1's or K4's register route, of K2, of K5, of K6's register
-route or of any K7 instance; phases 3, 12 and 13 run K1, K4 and K5 on both of their routes
-(register, shared) and at every packing of their warps, each case with a
-NaN column among healthy packed ones, phase 17 K6 on both of its routes,
-each case with its route; phases 7 and 16 also give K1's, K2's and K4's
-device time by torch.profiler and torch.profiler windows of the fused1d
-analysis, the cycle and the pallas analysis.
+spill of K1's union or register route, of K4's register route, of K2,
+of K5, of K6's register route or of any K7 instance; phases 3, 12 and 13
+run K1, K4 and K5 on each of their routes (K1's union, register and
+shared; the others' register and shared) and at every packing of their
+warps, each case with a NaN column among healthy packed ones, phase 17
+K6 on both of its routes, each case with its route; phases 7 and 16
+also give K1's, K2's and K4's device time by torch.profiler and
+torch.profiler windows of the fused1d analysis, the cycle and the pallas
+analysis.
 Then the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, and last {"ok": true, "device": {...}}.
 In that line ``ms`` is the time a call between CUDA events (phases 7, 11,
@@ -324,24 +326,27 @@ def resources_note():
     """Registers, static shared memory and spills of every kernel that the
     K1, K2, K3, K4, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports
     them; for K6's register route and K5's at nb = NB also the warps an SM
-    holds at that register count (4 warps a block); K1's and K4's register
-    routes (NBC = 4..64), K5's (NB = 1..32) and K7's 32 instances (Kp =
-    2..64) as registers by size, K1 and K4 at NBC = NB, K5 at NB and
-    K7 at Kp = 40 in full; K2 with the warps an SM holds (blocks of 4
-    warps). Fails on any spill of K1's or K4's register route, of K2, of
-    K5, of K6's register route or of K7."""
+    holds at that register count (4 warps a block); K1's register route
+    (NBC = 36..64), K1's union route (NBC = 4..32), K4's register route
+    (NBC = 4..64), K5's (NB = 1..32) and K7's 32 instances (Kp = 2..64) as
+    registers by size, K1's union route and K4 at NBC = NB, K5 at NB and K7
+    at Kp = 40 in full; K2 with the warps an SM holds (blocks of 4 warps).
+    Fails on any spill of K1's or K4's register route, of K1's union route,
+    of K2, of K5, of K6's register route or of K7."""
     notes = []
     for src in ("rk4_l96", "letkf_window1d", "letkf_nbh_cheb", "svd_jacobi",
                 "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi"):
-        by_size = {}
+        by_size, union = {}, {}
         for name, regs, smem, st, ld in _build.kernel_resources(
                 _build.ptxas_report(src)):
             note = (f"{name} {regs} registers, {smem} B static smem, spills "
                     f"{st} B stored / {ld} B loaded")
-            if name.startswith(("window1d_reg_kernel", "nbh_cheb_reg_kernel")):
+            if name.startswith(("window1d_union_kernel", "window1d_reg_kernel",
+                                "nbh_cheb_reg_kernel")):
                 check(st == 0 and ld == 0,
-                      f"K1/K4 register route spills: {note}")
-                by_size[int(name.split("<")[1].rstrip(">"))] = regs
+                      f"K1/K4 register or union route spills: {note}")
+                (union if "union" in name else by_size)[
+                    int(name.split("<")[1].rstrip(">"))] = regs
                 if not name.endswith(f"<{NB}>"):
                     continue
                 blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.CHEB_MAX_WARPS)
@@ -381,7 +386,17 @@ def resources_note():
             notes.append(label + ", ".join(
                 f"{n}: {r}" for n, r in sorted(by_size.items()))
                 + " (no spill)")
+        if union:
+            notes.append("K1 union route registers by NBC " + ", ".join(
+                f"{n}: {r}" for n, r in sorted(union.items()))
+                + " (no spill)")
     return "; ".join(notes)
+
+
+def k1_route(plan):
+    """K1's route in a window1d_plan: "union" where its blocks stage their
+    windows' union, else the plan's route."""
+    return "union" if plan["union"] else plan["route"]
 
 
 def build_workload(ens_size, len_grid, nr_obs, seed=SEED):
@@ -868,10 +883,11 @@ def main():
     out = run_window(a, nb)
     compare(out, run_window(a, nb, plain=True), "K1 unsorted")
     check(bool(torch.isnan(out).all()), "unsorted obs must poison all")
-    # both routes and every packing (window1d_plan's columns a warp),
-    # truncating windows; column 5's NaN state perturbation sits
-    # packed beside healthy columns, and the NaN perturbations of one
-    # observation poison the Gram matrices of a run of columns
+    # every route and packing (window1d_plan's columns a warp), the union
+    # route's fallback (o > g), truncating windows; column 5's NaN state
+    # perturbation sits packed beside healthy columns, and the NaN
+    # perturbations of one observation poison the Gram matrices of a run of
+    # columns
     cases = (("[40, 10^4]", with_nans(args, 5, 500), RADIUS),
              ("[40, 45] o 96", with_nans(
                  window_random(dev, 45, 96, SEED + 20), 5, 95), 1.5))
@@ -901,7 +917,8 @@ def main():
                         f"columns)")
         check(most_nan > 1, f"K1 nb {nb_c}: no window held the NaN "
               f"observation")
-        notes.append(f"nb {nb_c} ({plan['route']}, {plan['cols_per_warp']} a "
+        notes.append(f"nb {nb_c} ({k1_route(plan)}, "
+                     f"{plan['cols_per_warp']} a "
                      f"warp): " + ", ".join(errs))
     kinds["window1d"]["max_abs_err"] = err_k1
     log(3, "K1 window1d [40, 10000], o=1000, nb=12, degree 12: "
@@ -3992,7 +4009,7 @@ def fused1d_path(name, dev, gpu, loc):
                                   wall_ms=ms_fast)
     plan = k1.window1d_plan(w[0].shape[0], nb, 1, degree, w[0].shape[1])
     log(34, f"config {name} (ens {w[0].shape[0]}, grid {w[0].shape[1]}, obs "
-        f"{w[1].shape[0]}, nb {nb}, degree {degree}; K1 {plan['route']} "
+        f"{w[1].shape[0]}, nb {nb}, degree {degree}; K1 {k1_route(plan)} "
         f"route, {plan['cols_per_warp']} columns a warp, {plan['warps']} "
         f"warps a block, {plan['smem']} B shared): launches {launches} a "
         f"call; " + "; ".join(notes) + f"; geometry-bound bit for bit the "

@@ -17,7 +17,15 @@ kernels, on the CPU:
 - K1's and K4's plans (``window1d_plan``, ``nbh_cheb_plan``): every nb
   from 1 to 72 gets the route of its size, small windows packed 32 // nbc
   columns a warp on the register route, a block within a Hopper block's
-  shared memory, and blocks that cover the grid;
+  shared memory, and blocks that cover the grid; K1's union route up to nb
+  32 (its slots, shared bytes and blocks an SM, the arithmetic of
+  ``letkf_window1d.cu``'s twin) wherever its block fits, its register route
+  from nb 33, and the shared route for nb up to 32 where no union block
+  fits;
+- K1's block union widths (a twin here, ``window1d_union_widths``) from
+  the plain window selection: within the union slots on evenly spaced and
+  tied coordinates and where o < nb, beyond them on a shuffled grid and
+  where a block's columns reach more observations than the slots hold;
 - the parse of nvcc's resource report that ``chip_smoke.py`` prints.
 
 Whether a card exists is decided inside each test.
@@ -248,6 +256,50 @@ def test_nbh_ns_plan_raises_when_nothing_fits():
         k1.nbh_ns_plan(4096, 40, 1)
 
 
+SMEM_PER_SM = 233472  # a Hopper SM's shared memory, 228 KB
+
+
+def _own_floats(k, ns, degree, lanes, cols):
+    own = ns * k + ns + 4 * (degree + 1)
+    return (own + 31 - lanes) // 32 * 32 + lanes if cols > 1 else (
+        -(-own // 4) * 4)
+
+
+def _held_warps(warps, smem, reg_blocks):
+    """Warps an SM holds of blocks of ``warps`` warps and ``smem`` bytes,
+    registers for ``reg_blocks`` blocks of 8 warps."""
+    return warps * min(SMEM_PER_SM // (smem + 1024), 32, 64 // warps,
+                       reg_blocks * 8 // warps)
+
+
+def _union_plan(k, nb, ns, degree):
+    """K1's union route as letkf_window1d.cu sizes it: union_slots = nbc
+    + 8 window slots, staged with row stride slots + 1 beside their Gram
+    matrix and 2 * 8 ints of window bounds; a warp's slice holds its
+    columns' Clenshaw rows, a row of sqrt weights and the own blocks; the
+    warps of 8, 4, 2, 1 that an SM holds the most of (registers for 5
+    blocks of 8 warps up to nbc 8, 4 up to 16, 2 above), the larger on a
+    tie. Returns (slots, warps, smem, warps held an SM), or None where no
+    block fits."""
+    nbc = -(-nb // 4) * 4
+    lanes = max(min(1 << (nbc - 1).bit_length(), 32), 4)
+    cols = 32 // lanes
+    slots = nbc + 8
+    per_warp = cols * (nbc * (4 * (1 + ns) + 1)
+                       + _own_floats(k, ns, degree, lanes, cols))
+    block = (k + slots) * (slots + 1) + 2 * 8
+    best = None
+    for warps in (8, 4, 2, 1):
+        smem = 4 * (warps * per_warp + block)
+        if smem > SMEM_PER_BLOCK:
+            continue
+        held = _held_warps(warps, smem,
+                           5 if nbc <= 8 else 4 if nbc <= 16 else 2)
+        if best is None or held > best[3]:
+            best = (slots, warps, smem, held)
+    return best
+
+
 def _check_cheb_plan(kernel, nb):
     """K1's and K4's launch: the register route up to CHEB_REG_MAX_NB with
     nb rounded up to 4 (nbc), a column on nbc rounded up to a power of 2
@@ -256,13 +308,35 @@ def _check_cheb_plan(kernel, nb):
     and then each column's own block, lanes mod 32 floats long when packed,
     so that the packed columns' broadcasts of them fall in different banks;
     the most warps of 8, 4, 2, 1 whose slices fit a block's shared memory;
-    and blocks that cover g exactly."""
-    for k in (1, 9, 40, 64):
-        for ns, degree in ((1, 12), (6, 48), (6, 24)):
+    and blocks that cover g exactly. K1's plan takes the union route
+    (``_union_plan``) up to nb 32 wherever its block fits."""
+    for k in (1, 9, 20, 40, 64, 100):
+        for ns, degree in ((1, 12), (6, 48), (6, 24), (1, 16)):
             for g in (1, 37, 10000):
                 plan = getattr(k1, f"{kernel}_plan")(k, nb, ns, degree,
                                                      g)
-                register = nb <= k1.CHEB_REG_MAX_NB
+                if kernel == "window1d":
+                    nbc = -(-nb // 4) * 4
+                    union = _union_plan(k, nb, ns, degree) if nb <= 32 \
+                        else None
+                    if union is not None:
+                        slots, warps, smem, most = union
+                        cols = plan["cols_per_warp"]
+                        assert (plan["route"], plan["nbc"], plan["union"],
+                                plan["warps"], plan["smem"]) == (
+                            "register", nbc, slots, warps, smem)
+                        assert (slots + 1) % 2 == 1
+                        assert plan["blocks_per_sm"] * warps == most
+                        assert cols == 32 // max(min(
+                            1 << (nbc - 1).bit_length(), 32), 4)
+                        assert (plan["blocks"] - 1) * warps * cols < g <= (
+                            plan["blocks"] * warps * cols)
+                        continue
+                    assert plan["union"] == 0
+                    assert plan["blocks_per_sm"] * plan["warps"] == (
+                        _held_warps(plan["warps"], plan["smem"], 1))
+                register = nb <= k1.CHEB_REG_MAX_NB and (
+                    kernel == "nbh_cheb" or nb > k1.CHEB_UNION_MAX_NB)
                 assert plan["route"] == ("register" if register
                                          else "shared")
                 nbc = -(-nb // 4) * 4
@@ -305,6 +379,110 @@ def test_window1d_plan(nb):
 @pytest.mark.parametrize("nb", range(1, 73))
 def test_nbh_cheb_plan(nb):
     _check_cheb_plan("nbh_cheb", nb)
+
+
+@pytest.mark.parametrize("k,nb,degree,g,union,warps,smem,per_sm", [
+    (100, 8, 16, 1 << 20, 16, 8, 42768, 5),   # the cycle cell, bench config 5
+    (40, 12, 12, 10000, 20, 8, 19184, 4),     # bench config 6
+    (40, 32, 47, 10000, 40, 8, 29952, 2),     # bench config 10
+    (20, 8, 16, 4096, 16, 8, 25040, 5),
+])
+def test_window1d_plan_bench_shapes(k, nb, degree, g, union, warps, smem,
+                                    per_sm):
+    """K1 at the benchmark's shapes takes the union route: at k 100, nb 8
+    a 42.8 KB block, five blocks of 8 warps an SM (the per-column route's
+    136 KB block held one)."""
+    plan = k1.window1d_plan(k, nb, 1, degree, g)
+    assert (plan["union"], plan["warps"], plan["smem"],
+            plan["blocks_per_sm"]) == (union, warps, smem, per_sm)
+    cols = warps * plan["cols_per_warp"]
+    assert plan["blocks"] == -(-g // cols)
+
+
+def _network(name):
+    """(grid_x, obs_x, nb) of a union-width case."""
+    even = lambda g, o: np.linspace(0, g, num=o, endpoint=False)  # noqa
+    return {
+        "even": (np.arange(1 << 16), even(1 << 16, 1 << 12), 8),
+        "tied": (np.arange(10000), np.repeat(even(10000, 1000), 4), 32),
+        "o<nb": (np.arange(1000), even(1000, 5), 8),
+        "shuffled": (np.random.RandomState(3).permutation(4096),
+                     even(4096, 256), 8),
+        "o>g": (np.arange(256), even(256, 4096), 8),
+    }[name]
+
+
+@pytest.mark.parametrize("k,nb,warps", [(3000, 8, 2), (1500, 32, 1)])
+def test_window1d_plan_takes_the_shared_route_where_no_union_block_fits(
+        k, nb, warps):
+    """Windows of up to 32 whose union block does not fit (k above about
+    1300 at nb 32) take the shared route, one warp a column."""
+    assert _union_plan(k, nb, 1, 16) is None
+    plan = k1.window1d_plan(k, nb, 1, 16, 1000)
+    assert (plan["route"], plan["nbc"], plan["union"], plan["cols_per_warp"],
+            plan["warps"]) == ("shared", None, 0, 1, warps)
+
+
+def window1d_union_widths(obs_x, grid_x, radius, nb, cols_per_block):
+    """The window slots that each block of ``cols_per_block`` consecutive
+    grid columns reads on K1's union route, from the plain window
+    selection: the spread of its columns' window starts plus ``nb`` rounded
+    up to 4 (a tensor [blocks]). The kernel stages the block's union where
+    this is at most the plan's ``union`` slots, and takes each column's
+    window from global memory elsewhere. The support rounds to f32 as the
+    kernel's launcher rounds it."""
+    sup = float(np.float32(k1.taper_support_z("gc2", 1e-5))
+                * np.float32(radius))
+    start, _ = k1._window_starts(obs_x, grid_x, sup, nb)
+    pad = -start.shape[0] % cols_per_block
+    blocks = torch.cat([start, start[-1:].expand(pad)]).reshape(
+        -1, cols_per_block)
+    return (blocks.amax(1) - blocks.amin(1)) + -(-nb // 4) * 4
+
+
+def _random_sorted(o):
+    return np.sort(np.random.RandomState(o).uniform(0, 100, size=o))
+
+
+def _network(name):
+    """(grid_x, obs_x, nb) of a union-width case."""
+    even = lambda g, o: np.linspace(0, g, num=o, endpoint=False)  # noqa
+    return {
+        "even": (np.arange(1 << 16), even(1 << 16, 1 << 12), 8),
+        "tied": (np.arange(10000), np.repeat(even(10000, 1000), 4), 32),
+        "o<nb": (np.arange(1000), even(1000, 5), 8),
+        "random o<nb": (np.arange(100), _random_sorted(5), 8),
+        "shuffled": (np.random.RandomState(3).permutation(4096),
+                     even(4096, 256), 8),
+        "o>g": (np.arange(256), even(256, 4096), 8),
+        "random o 64": (np.arange(100), _random_sorted(64), 8),
+        "random o>g": (np.arange(100), _random_sorted(300), 8),
+    }[name]
+
+
+@pytest.mark.parametrize("name,within", [
+    ("even", True), ("tied", True), ("o<nb", True), ("random o<nb", True),
+    ("shuffled", False), ("o>g", False), ("random o 64", False),
+    ("random o>g", False)])
+def test_window1d_union_widths(name, within):
+    """The slots each block of the plan's columns reads, from the plain
+    window selection: within the union slots wherever consecutive columns
+    share their windows (with o < nb every column has the one window
+    [o - nb, o)), beyond them on a shuffled grid and where a block's
+    columns reach more observations than the slots hold, whose blocks take
+    the fallback."""
+    grid_x, obs_x, nb = _network(name)
+    k = 40
+    plan = k1.window1d_plan(k, nb, 1, 16, len(grid_x))
+    widths = window1d_union_widths(
+        torch.as_tensor(obs_x, dtype=torch.float32),
+        torch.as_tensor(grid_x, dtype=torch.float32), 20.0, nb,
+        plan["warps"] * plan["cols_per_warp"])
+    assert widths.shape == (plan["blocks"],)
+    assert bool((widths >= -(-nb // 4) * 4).all())
+    assert bool((widths <= plan["union"]).all()) == within
+    if "o<nb" in name:
+        assert bool((widths == 8).all())
 
 
 @pytest.mark.parametrize("plan", [k1.window1d_plan, k1.nbh_cheb_plan])

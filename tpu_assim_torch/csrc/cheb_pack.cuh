@@ -52,7 +52,9 @@
 //
 // The caller fills the column's zt (pad entries zero), row 0 of w_all (pad
 // entries zero), spc and meanc, then calls solve_apply<NBC>, which leaves
-// the column's analysis [ns][k] in spc.
+// the column's analysis [ns][k] in spc: gram, clenshaw and apply in turn.
+// K1's union route (letkf_window1d.cu) forms S and u from its block's
+// staged windows and calls clenshaw alone.
 
 #pragma once
 
@@ -200,22 +202,26 @@ __device__ __forceinline__ void matvec2(const float (&s)[R][NBC],
   }
 }
 
+// Rows of S a lane holds: r, and r + 32 above NBC 32.
+__host__ __device__ constexpr int lane_rows(int nbc) {
+  return nbc > 32 ? 2 : 1;
+}
+
 // The steps of cheb_core.cuh's solve_apply for one column of a window of
 // nb <= NBC observations, by its lane r (0 <= r < lanes_per_col(NBC)); rows
-// r >= NBC are idle. Every lane of the warp calls it (for its own column)
-// and reaches each __syncwarp.
+// r >= NBC are idle. Every lane of the warp calls each step (for its own
+// column) and reaches each __syncwarp.
+
+// 1. S = zh zh^T into s, u_i = zh sp_i into rows 1.. of w_all, b1 and b2
+// zeroed.
 template <int NBC>
-__device__ inline void solve_apply(const Col& w, const float* nodes,
-                                   const float* __restrict__ dct, int k,
-                                   int nb, int ns, int degree, float reg,
-                                   int r) {
+__device__ __forceinline__ void gram(const Col& w, int k, int ns, int r,
+                                     float (&s)[lane_rows(NBC)][NBC]) {
   constexpr int L = lanes_per_col(NBC);
   constexpr int W = cols_per_warp(NBC) * NBC;
-  constexpr int R = NBC > 32 ? 2 : 1;  // rows of S a lane: r, r + 32
-  const int dp1 = degree + 1;
+  constexpr int R = lane_rows(NBC);
 
-  // 1. S = zh zh^T in registers, u_1 = zh sp_1 alongside, then u_2.. u_ns
-  float s[R][NBC];
+  // S in registers, u_1 = zh sp_1 alongside, then u_2.. u_ns
   float u1[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -266,6 +272,21 @@ __device__ inline void solve_apply(const Col& w, const float* nodes,
     w.b2[at] = 0.0f;
   }
   __syncwarp();
+}
+
+// 2.-4. and the mean: the spectral bound of S, the Chebyshev coefficients,
+// the joint Clenshaw recurrence over rows 0.. of w_all (yh, u_1.. u_ns),
+// and meanc_i += <u_i, q>/reg. Returns the recurrence's result: q =
+// X^{-1} yh in row 0, v_i = f2(X) u_i in rows 1.. (one of b0, b1, b2).
+template <int NBC>
+__device__ __forceinline__ float* clenshaw(
+    const Col& w, const float (&s)[lane_rows(NBC)][NBC], const float* nodes,
+    const float* __restrict__ dct, int nb, int ns, int degree, float reg,
+    int r) {
+  constexpr int L = lanes_per_col(NBC);
+  constexpr int W = cols_per_warp(NBC) * NBC;
+  constexpr int R = lane_rows(NBC);
+  const int dp1 = degree + 1;
 
   // 2. the spectral bound, NaN kept, over the column's lanes
   float row_max = 0.0f, diag = 0.0f;
@@ -350,10 +371,9 @@ __device__ inline void solve_apply(const Col& w, const float* nodes,
       b0 = t;
     }
   }
-  const float* res = b0;  // q = X^{-1} yh in row 0, v_i = f2(X) u_i after
+  float* res = b0;  // q = X^{-1} yh in row 0, v_i = f2(X) u_i after
 
-  // 5. mean_i + <u_i, q>/reg once per slice, then spc_i <- that + alpha
-  // sp_i - (alpha/reg) zh^T v_i; each lane writes only its own entries
+  // mean_i + <u_i, q>/reg once per slice; each lane writes its own
 #pragma unroll 1
   for (int i = r; i < ns; i += L) {
     const float* u = w.w_all + (1 + i) * W;
@@ -369,6 +389,16 @@ __device__ inline void solve_apply(const Col& w, const float* nodes,
     w.meanc[i] = w.meanc[i] + uq / reg;
   }
   __syncwarp();
+  return res;
+}
+
+// 5. spc_i <- mean_i + alpha sp_i - (alpha/reg) zh^T v_i, v_i in rows 1..
+// of res; each lane writes only its own entries.
+template <int NBC>
+__device__ __forceinline__ void apply(const Col& w, const float* res, int k,
+                                      int ns, float reg, int r) {
+  constexpr int L = lanes_per_col(NBC);
+  constexpr int W = cols_per_warp(NBC) * NBC;
   const float alpha = sqrtf((static_cast<float>(k) - 1.0f) / reg);
   const float alpha_reg = alpha / reg;
 #pragma unroll 1
@@ -388,6 +418,18 @@ __device__ inline void solve_apply(const Col& w, const float* nodes,
     w.spc[f] = w.meanc[i] + alpha * w.spc[f] - alpha_reg * zv;
   }
   __syncwarp();
+}
+
+// The whole solve from zt: steps 1 to 5, leaving the analysis in spc.
+template <int NBC>
+__device__ inline void solve_apply(const Col& w, const float* nodes,
+                                   const float* __restrict__ dct, int k,
+                                   int nb, int ns, int degree, float reg,
+                                   int r) {
+  float s[lane_rows(NBC)][NBC];
+  gram<NBC>(w, k, ns, r, s);
+  const float* res = clenshaw<NBC>(w, s, nodes, dct, nb, ns, degree, reg, r);
+  apply<NBC>(w, res, k, ns, reg, r);
 }
 
 }  // namespace cheb_pack

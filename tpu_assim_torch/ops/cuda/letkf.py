@@ -11,7 +11,10 @@ helpers they share with the JAX package:
 - K1 and K4 take two routes by window size (:func:`window1d_plan`,
   :func:`nbh_cheb_plan`): the Gram matrix in registers with small windows
   packed several columns to a warp (``csrc/cheb_pack.cuh``), or in shared
-  memory (``csrc/cheb_core.cuh``);
+  memory (``csrc/cheb_core.cuh``); up to windows of ``CHEB_UNION_MAX_NB``,
+  K1 takes a third, its union route, which stages the union of a block's
+  windows once, and counts the blocks that took it in
+  ``WINDOW1D_UNION_BLOCKS``;
 - K5, :func:`letkf_nbh_analysis_fused` (``csrc/letkf_nbh_ns.cu``): the
   Woodbury solve by Newton-Schulz iterations and apply over neighborhoods
   gathered as ``[g, nb, k]``; two routes by ``nb`` (:func:`nbh_ns_plan`),
@@ -91,6 +94,12 @@ __all__ = [
 
 # Launches of each CUDA kernel, counted by its wrapper.
 LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0, "window2d": 0}
+
+# K1's last launch: its two ints of scratch on the card (the sortedness
+# flag, then the count of blocks that took the union route) and its block
+# count. Nothing reads the tensor during a call; window1d_union_share does,
+# with a synchronise.
+WINDOW1D_UNION_BLOCKS = {"flag": None, "blocks": 0}
 
 # Why a direct launch refuses an input that requires a gradient.
 _NO_GRAD_LAUNCH = {
@@ -340,6 +349,18 @@ def _cheb_solve_apply(nodes, dct_mat, zh, yh, sp, mean, reg, ens_size,
     return mean + mean_upd + alpha * sp - (alpha / reg) * zv
 
 
+def _window_starts(obs_x, grid_x, sup, nb):
+    """Each grid column's first window observation, as the kernel's
+    find_window selects it (``start`` clipped onto ``[0, o - nb]`` as
+    ``min(max(., 0), o - nb)``), and the column's in-support count ``high -
+    low``; ``sup`` is the taper's support in coordinate units."""
+    center = torch.searchsorted(obs_x, grid_x, right=True)
+    low = torch.searchsorted(obs_x, grid_x - sup, right=True)
+    high = torch.searchsorted(obs_x, grid_x + sup)
+    start = torch.minimum(torch.maximum(center - nb // 2, high - nb), low)
+    return torch.clamp(start, min=0, max=obs_x.shape[0] - nb), high - low
+
+
 def window_analysis_plain(perts, innov, obs_x, grid_x, sp, mean, reg,
                           radius, *, ens_size, nb, degree, epsilon, taper,
                           strict):
@@ -361,11 +382,7 @@ def window_analysis_plain(perts, innov, obs_x, grid_x, sp, mean, reg,
     radius = torch.as_tensor(radius, dtype=dtype, device=device)
     sup = torch.as_tensor(taper_support_z(taper, epsilon), dtype=dtype,
                           device=device) * radius
-    center = torch.searchsorted(obs_x, grid_x, right=True)
-    low = torch.searchsorted(obs_x, grid_x - sup, right=True)
-    high = torch.searchsorted(obs_x, grid_x + sup)
-    start = torch.minimum(torch.maximum(center - nb // 2, high - nb), low)
-    start = torch.clamp(start, min=0, max=o - nb)
+    start, in_support = _window_starts(obs_x, grid_x, sup, nb)
     idx = start[:, None] + torch.arange(nb, device=device)[None, :]  # [g, nb]
     valid = (idx >= 0) & (idx < o)
     idx = torch.clamp(idx, 0, o - 1)
@@ -375,7 +392,7 @@ def window_analysis_plain(perts, innov, obs_x, grid_x, sp, mean, reg,
     zh = perts[:, idx].permute(2, 0, 1) * sw[:, None, :]        # [nb, k, g]
     yh = torch.where(valid, innov[idx], 0.0).T * sw             # [nb, g]
     if strict and o > nb:
-        yh = yh + torch.where(high - low > nb, math.nan, 0.0).to(dtype)
+        yh = yh + torch.where(in_support > nb, math.nan, 0.0).to(dtype)
     if o > 1:
         sorted_ok = torch.all(obs_x[1:] >= obs_x[:-1])
         mean = mean + torch.where(sorted_ok, 0.0, math.nan).to(dtype)
@@ -392,11 +409,13 @@ def _window1d_lib():
     lib = load_library("letkf_window1d")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window1d_launch.argtypes = (
-        [ptr] * 10 + [i32] * 6 + [f32] * 4 + [i32] * 4 + [ptr])
+        [ptr] * 10 + [i32] * 6 + [f32] * 4 + [i32] * 5 + [ptr])
     lib.window1d_launch.restype = i32
-    lib.window1d_smem_bytes.argtypes = [i32] * 5
+    lib.window1d_union_slots.argtypes = [i32]
+    lib.window1d_union_slots.restype = i32
+    lib.window1d_smem_bytes.argtypes = [i32] * 6
     lib.window1d_smem_bytes.restype = ctypes.c_size_t
-    lib.window1d_cols_per_warp.argtypes = [i32]
+    lib.window1d_cols_per_warp.argtypes = [i32] * 2
     lib.window1d_cols_per_warp.restype = i32
     lib.window1d_error_string.argtypes = [i32]
     lib.window1d_error_string.restype = ctypes.c_char_p
@@ -474,11 +493,11 @@ def _pullback(ctx, replay, grad):
 
 # K1's and K4's routes (csrc/letkf_window1d.cu, csrc/letkf_nbh_cheb.cu): the
 # register route (csrc/cheb_pack.cuh) holds the Gram matrix in registers for
-# windows of up to CHEB_REG_MAX_NB observations, nb rounded up to 4 (nbc) a
-# template argument, a column on nbc rounded up to a power of 2 lanes (at
-# most 32) and 32 // lanes columns a warp; the shared route
-# (csrc/cheb_core.cuh) takes larger windows, one warp a column. Both take up
-# to CHEB_MAX_WARPS warps a block.
+# windows of up to CHEB_REG_MAX_NB observations (K1's from 33, below its
+# union route), nb rounded up to 4 (nbc) a template argument, a column on
+# nbc rounded up to a power of 2 lanes (at most 32) and 32 // lanes columns
+# a warp; the shared route (csrc/cheb_core.cuh) takes larger windows, one
+# warp a column. Both take up to CHEB_MAX_WARPS warps a block.
 CHEB_REG_MAX_NB = 64
 CHEB_MAX_WARPS = 8
 
@@ -514,10 +533,10 @@ def _cheb_core_floats(k: int, nb: int, ns: int, degree: int) -> int:
 
 
 def _cheb_plan(name: str, k: int, nb: int, ns: int, degree: int, g: int,
-               shared_floats: int) -> dict:
+               shared_floats: int, register: bool) -> dict:
     from tpu_assim_torch._build import SMEM_PER_BLOCK
 
-    route = "register" if nb <= CHEB_REG_MAX_NB else "shared"
+    route = "register" if register else "shared"
     nbc = _round4(nb) if route == "register" else None
     cols = 32 // _cheb_pack_lanes(nbc) if route == "register" else 1
     per_warp = 4 * (_cheb_pack_warp_floats(k, nb, ns, degree)
@@ -534,31 +553,126 @@ def _cheb_plan(name: str, k: int, nb: int, ns: int, degree: int, g: int,
             "blocks": -(-g // (warps * cols))}
 
 
+# K1's union route (csrc/letkf_window1d.cu): up to CHEB_UNION_MAX_NB a
+# block stages the raw perturbations of union_slots(nbc) consecutive
+# observations, its windows' union, and their Gram matrix once, row stride
+# union_slots + 1, beside the warps' slices, which hold the Clenshaw rows,
+# the sqrt weights and the columns' own blocks but no per-column window.
+CHEB_UNION_MAX_NB = 32
+
+# A Hopper SM's shared memory (228 KB), the part the runtime reserves a
+# block, and its most resident blocks and warps.
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+MAX_BLOCKS_PER_SM = 32
+MAX_WARPS_PER_SM = 64
+
+
+def _union_slots(nbc: int) -> int:
+    """Window slots a block stages on K1's union route
+    (letkf_window1d.cu:union_slots): nbc + 8."""
+    return nbc + 8
+
+
+def _union_warp_floats(k: int, nbc: int, ns: int, degree: int) -> int:
+    """Shared floats of one warp's slice on the union route: the register
+    route's slice with a row of sqrt taper weights in place of its
+    per-column window rows zt."""
+    return _cheb_pack_warp_floats(k, nbc, ns, degree) - (
+        32 // _cheb_pack_lanes(nbc)) * nbc * (k - 1)
+
+
+def _union_block_floats(k: int, nbc: int) -> int:
+    """Shared floats of the union route's block part: the staged union
+    [k][U + 1], its Gram matrix [U][U + 1], the warps' window bounds."""
+    u = _union_slots(nbc)
+    return (k + u) * (u + 1) + 2 * CHEB_MAX_WARPS
+
+
+def _union_launch_blocks(nbc: int) -> int:
+    """Blocks of CHEB_MAX_WARPS warps an SM whose registers K1's union
+    kernel is built for (its __launch_bounds__): 5 up to nbc 8, 4 up to 16
+    (48 registers spill there), 2 above."""
+    return 5 if nbc <= 8 else 4 if nbc <= 16 else 2
+
+
+def _blocks_per_sm(warps: int, smem: int, reg_blocks: int) -> int:
+    """Blocks of ``warps`` warps and ``smem`` bytes of shared memory that
+    an SM holds, with registers for ``reg_blocks`` blocks of
+    CHEB_MAX_WARPS warps."""
+    return min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
+               MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // warps,
+               reg_blocks * CHEB_MAX_WARPS // warps)
+
+
 def window1d_plan(k: int, nb: int, ns: int, degree: int, g: int) -> dict:
     """K1's launch for ``g`` columns, windows of ``nb`` observations, ``k``
     members, ``ns`` state slices and Chebyshev degree ``degree``: the route
-    (``"register"`` up to ``CHEB_REG_MAX_NB``, else ``"shared"``), the
+    (``"register"`` for the union route up to ``CHEB_UNION_MAX_NB`` and the
+    register route up to ``CHEB_REG_MAX_NB``, else ``"shared"``), the
     template argument ``nbc`` (None on the shared route), the columns a
-    warp, the warps a block (the most of 8, 4, 2, 1 whose slices fit a
-    Hopper block's shared memory), the block's shared memory in bytes and
-    the blocks that cover ``g``. Raises ``ValueError`` when not even one
-    warp fits."""
-    return _cheb_plan("window1d", k, nb, ns, degree, g,
-                      _round4(_cheb_core_floats(k, nb, ns, degree) + nb))
+    warp, the warps a block, the block's shared memory in bytes, the blocks
+    that cover ``g``, ``union`` (the window slots a block stages on the
+    union route, 0 off it) and ``blocks_per_sm`` (the blocks an SM holds).
+
+    Up to ``CHEB_UNION_MAX_NB`` the union route is taken wherever its block
+    fits, with the warps a block of 8, 4, 2, 1 that an SM holds the most of
+    (the larger block on a tie), and the shared route where it does not (k
+    above about 1300). The register and shared routes take the most of 8,
+    4, 2, 1 warps whose slices fit a Hopper block's shared memory. Raises
+    ``ValueError`` when not even one warp fits."""
+    from tpu_assim_torch._build import SMEM_PER_BLOCK
+
+    nbc = _round4(nb)
+    best = None
+    if nb <= CHEB_UNION_MAX_NB:
+        per_warp = _union_warp_floats(k, nbc, ns, degree)
+        for warps in (8, 4, 2, 1):
+            smem = 4 * (warps * per_warp + _union_block_floats(k, nbc))
+            if smem > SMEM_PER_BLOCK:
+                continue
+            held = warps * _blocks_per_sm(warps, smem,
+                                         _union_launch_blocks(nbc))
+            if best is None or held > best[0]:
+                best = (held, warps, smem)
+    if best is not None:
+        held, warps, smem = best
+        cols = 32 // _cheb_pack_lanes(nbc)
+        return {"route": "register", "nbc": nbc, "cols_per_warp": cols,
+                "warps": warps, "smem": smem,
+                "blocks": -(-g // (warps * cols)),
+                "union": _union_slots(nbc), "blocks_per_sm": held // warps}
+    plan = _cheb_plan("window1d", k, nb, ns, degree, g,
+                      _round4(_cheb_core_floats(k, nb, ns, degree) + nb),
+                      CHEB_UNION_MAX_NB < nb <= CHEB_REG_MAX_NB)
+    plan["union"] = 0
+    plan["blocks_per_sm"] = _blocks_per_sm(plan["warps"], plan["smem"], 1)
+    return plan
 
 
 def nbh_cheb_plan(k: int, nb: int, ns: int, degree: int, g: int) -> dict:
-    """K4's launch, as :func:`window1d_plan` gives K1's."""
+    """K4's launch for ``g`` columns, windows of ``nb``, ``k`` members,
+    ``ns`` state slices and Chebyshev degree ``degree``: the route
+    (``"register"`` up to ``CHEB_REG_MAX_NB``, else ``"shared"``), the
+    template argument ``nbc`` (None on the shared route), the columns a
+    warp, the most warps a block of 8, 4, 2, 1 whose slices fit a Hopper
+    block's shared memory, the block's shared memory in bytes and the
+    blocks that cover ``g``. Raises ``ValueError`` when not even one warp
+    fits."""
     return _cheb_plan("nbh_cheb", k, nb, ns, degree, g,
-                      _cheb_core_floats(k, nb, ns, degree))
+                      _cheb_core_floats(k, nb, ns, degree),
+                      nb <= CHEB_REG_MAX_NB)
 
 
-def _check_plan(name, plan, smem, cols_per_warp):
-    """The library's own shared bytes and columns a warp for a plan."""
-    if (smem, cols_per_warp) != (plan["smem"], plan["cols_per_warp"]):
+def _check_plan(name, plan, smem, cols_per_warp, slots=0):
+    """The library's own shared bytes, columns a warp and union slots
+    (K1's) for a plan."""
+    if (smem, cols_per_warp, slots) != (plan["smem"], plan["cols_per_warp"],
+                                        plan.get("union", 0)):
         raise RuntimeError(
             f"{name}: the plan {plan} differs from the kernel's {smem} "
-            f"bytes and {cols_per_warp} columns a warp")
+            f"bytes, {cols_per_warp} columns a warp and {slots} union "
+            f"slots")
 
 
 @functools.lru_cache(maxsize=256)
@@ -566,13 +680,20 @@ def _cheb_launch_plan(name: str, k: int, nb: int, ns: int, degree: int,
                       g: int) -> dict:
     """K1's (``name`` "window1d") or K4's ("nbh_cheb") plan, checked once
     per shape against its library's own shared bytes and columns a warp."""
-    plan = (window1d_plan if name == "window1d" else nbh_cheb_plan)(
-        k, nb, ns, degree, g)
-    lib = _window1d_lib() if name == "window1d" else _nbh_cheb_lib()
+    if name == "nbh_cheb":
+        plan = nbh_cheb_plan(k, nb, ns, degree, g)
+        lib = _nbh_cheb_lib()
+        _check_plan(name, plan,
+                    lib.nbh_cheb_smem_bytes(k, nb, ns, degree, plan["warps"]),
+                    lib.nbh_cheb_cols_per_warp(nb))
+        return plan
+    plan = window1d_plan(k, nb, ns, degree, g)
+    lib = _window1d_lib()
+    slots = lib.window1d_union_slots(nb) if plan["union"] else 0
     _check_plan(name, plan,
-                getattr(lib, f"{name}_smem_bytes")(k, nb, ns, degree,
-                                                   plan["warps"]),
-                getattr(lib, f"{name}_cols_per_warp")(nb))
+                lib.window1d_smem_bytes(k, nb, ns, degree, plan["warps"],
+                                        slots),
+                lib.window1d_cols_per_warp(nb, slots), slots)
     return plan
 
 
@@ -587,7 +708,7 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
     device = perts.device
     nodes, dct = _cheb_tables(degree, device)
     out = torch.empty_like(sp)
-    flag = torch.empty(1, dtype=torch.int32, device=device)
+    flag = torch.empty(2, dtype=torch.int32, device=device)
     # the support bound rounds to f32 as f32(z*) * f32(radius), as on the TPU
     sup = float(np.float32(taper_support_z(taper, epsilon))
                 * np.float32(radius))
@@ -599,12 +720,24 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
             nodes.data_ptr(), dct.data_ptr(), flag.data_ptr(),
             out.data_ptr(), k, o, g, ns, nb, degree, float(reg),
             float(radius), sup, float(epsilon), _TAPERS.index(taper),
-            int(bool(strict)), plan["warps"], plan["blocks"], stream)
+            int(bool(strict)), plan["warps"], plan["blocks"], plan["union"],
+            stream)
     if err != 0:
         raise RuntimeError("window1d kernel launch failed: "
                            + lib.window1d_error_string(err).decode())
     LAUNCHES["window1d"] += 1
+    WINDOW1D_UNION_BLOCKS.update(flag=flag, blocks=plan["blocks"])
     return out
+
+
+def window1d_union_share():
+    """The share of K1's last launch's blocks that took the union route
+    (0.0 where none did), read from the card with a synchronise; None
+    before any launch."""
+    flag = WINDOW1D_UNION_BLOCKS["flag"]
+    if flag is None:
+        return None
+    return int(flag[1].item()) / WINDOW1D_UNION_BLOCKS["blocks"]
 
 
 def _window1d_forward(perts, innov, obs_x, grid_x, sp, mean, reg, radius,
