@@ -410,13 +410,14 @@ def make_strip_letkf_2d(
         if dev not in on_device:
             on_device[dev] = torch.as_tensor(cells, device=dev)
         k = state_data.shape[0]
-        perts, innov = _normalized_obs_space(
-            state_data[:, on_device[dev]], obs_vals, obs_var)
-        mean = torch.mean(state_data, dim=0)
-        sp = state_data - mean[None, :]
-        out = _strip_apply_2d(plan, perts, innov, sp[None], mean[None],
-                              (k - 1) / inf_factor, cheb_degree)
-        return out[0].to(state_data.dtype)
+        with span("strip.analysis"):
+            perts, innov = _normalized_obs_space(
+                state_data[:, on_device[dev]], obs_vals, obs_var)
+            mean = torch.mean(state_data, dim=0)
+            sp = state_data - mean[None, :]
+            out = _strip_apply_2d(plan, perts, innov, sp[None], mean[None],
+                                  (k - 1) / inf_factor, cheb_degree)
+            return out[0].to(state_data.dtype)
 
     return analysis_fn
 
@@ -564,7 +565,9 @@ def _strip_apply_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
     args, kwargs = _strip_inputs_2d(plan, perts, innov, sp, mean, reg,
                                     cheb_degree)
     inv = _strip_plan_on(plan, perts.device)["inv"]
-    return window2d_banded(*args, **kwargs)[..., inv]
+    out = window2d_banded(*args, **kwargs)
+    with span("strip.scatter"):
+        return out[..., inv]
 
 
 def _strip_inputs_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
@@ -577,11 +580,20 @@ def _strip_inputs_2d(plan, perts, innov, sp, mean, reg, cheb_degree):
         (perts.to(f32)[:, dev["osel"]] * dev["oval"]).T,
         (innov.to(f32)[dev["osel"]] * dev["oval"])[:, None],
         dev["seg_ox"][:, None], dev["seg_oy"][:, None]], dim=1)  # [S p, k+3]
-    # reg keeps its graph: the inflation is learnable through the strips
-    scal = torch.cat([
-        torch.as_tensor(reg, dtype=f32, device=perts.device).reshape(1),
-        torch.tensor([plan["rx"], plan["ry"]], dtype=f32,
-                     device=perts.device)])
+    if isinstance(reg, torch.Tensor):
+        # reg keeps its graph: the inflation is learnable through the strips
+        scal = torch.cat([
+            torch.as_tensor(reg, dtype=f32, device=perts.device).reshape(1),
+            torch.tensor([plan["rx"], plan["ry"]], dtype=f32,
+                         device=perts.device)])
+    else:
+        # a number: copied to the device once, since a copy from the host
+        # waits for the stream and would stall a caller dispatching ahead
+        key = ("scal", float(reg))
+        if key not in dev:
+            dev[key] = torch.tensor([reg, plan["rx"], plan["ry"]],
+                                    dtype=f32, device=perts.device)
+        scal = dev[key]
     args = (table.contiguous(), dev["bands"], dev["grid2"],
             sp.to(f32)[..., dev["perm"]].contiguous(),
             mean.to(f32)[..., dev["perm"]].contiguous(), scal)

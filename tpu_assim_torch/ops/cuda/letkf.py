@@ -1366,7 +1366,7 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     _check_launchable("window2d", (table, bands, grid, sp, mean, scal), smem)
     nodes, dct = _cheb_tables(degree, table.device)
     out = torch.empty_like(sp)
-    with torch.cuda.device(table.device):
+    with span("kernel.window2d"), torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.window2d_launch(
             table.data_ptr(), bands.data_ptr(), grid.data_ptr(),

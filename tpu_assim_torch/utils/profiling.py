@@ -6,8 +6,9 @@ spans (``torch.profiler.record_function``) that show up in it.
 
 The program's own layer boundaries open a :func:`span`
 (``tpu_assim_torch.<name>`` in a trace): the cycle and IEnKS steps, the
-forecast, the LETKF analysis, the IEnKS taper, outer iteration and inner
-step, the SVD dispatch, and each launch of kernels K1, K2 and K3. A span
+forecast, the LETKF analysis, the x-strip analysis and its scatter back,
+the IEnKS taper, outer iteration and inner step, the SVD dispatch, and
+each launch of kernels K1, K2, K3 and K6. A span
 records only while a profiler runs; otherwise it costs one check.
 
 Usage::
