@@ -1,11 +1,12 @@
 """
-Times the 1-D window kernel (K1), the fused RK4 forecast (K2) and the
-neighbourhood Chebyshev kernel (K4) on one CUDA card at the shapes of their
-main paths, for the tpu_assim_torch package found under ``--root``
-(default: this checkout), and prints one JSON line with the card's name and
-power limit.
+Times the 1-D window kernel (K1), the fused RK4 forecast (K2), the
+neighbourhood Chebyshev kernel (K4) and the 2-D window kernel (K6) on one
+CUDA card at the shapes of their main paths, for the tpu_assim_torch
+package found under ``--root`` (default: this checkout), and prints one
+JSON line with the card's name and power limit.
 
     python3 chip_kernel_times.py [--root DIR] [--label NAME] [--check]
+                                 [--only PREFIX]
 
 The inputs, the calls and the timers are those of ``chip_smoke.py`` beside
 this file (its ``build_workload``, ``window_inputs``, ``nbh_inputs``,
@@ -23,23 +24,36 @@ observation times, tied coordinates, nb 32, the auto degree); and K1 where
 a block's windows spread beyond what its union route stages: the headline
 workload on a shuffled grid and with 20 000 observations (nb 12 and 8),
 config 5 on a shuffled grid, and ens 100 on 2^18 columns with 2^19
-observations (nb 8, degree 16). Per call, three times: ``ms``, the median of 20
-samples of 10 back-to-back calls between CUDA events (what a caller waits,
-host-bound where the wrapper's host work outlasts the kernel; the ``ms`` of
-chip_smoke.py's kernels line); ``device_ms``, the device time of a call by
+observations (nb 8, degree 16). K6 at bench.py's config 8 (1024 x 1024
+columns, ens 40, 10^5 observed cells, GC radius 4 in x and y, degree 16)
+through the strip plan of the benchmark's ``grid2d-1024`` cell (16 strips,
+the plan's window), at config 7 (128 x 128, 1024 cells, the exact window,
+degree 12), and on a dense network where every slot of every window
+weighs (512 rows of 128 columns, 2^18 observations, ``dense_network``; GC
+radius 8, nb 52, degree 16, not strict): the side of K6's per-column width
+where there is nothing to leave out. Per call, three times: ``ms``, the
+median of 20 samples of 10 back-to-back calls between CUDA events (what a
+caller waits, host-bound where the wrapper's host work outlasts the
+kernel; the ``ms`` of chip_smoke.py's kernels line); ``device_ms``, the device time of a call by
 torch.profiler over 20 calls (every kernel the call launches: K1's
 sortedness check included); ``host_ms``, the host's time to issue one call,
 over 200 calls without a wait. ``--check`` also holds each kernel against
 its plain version on the same inputs (``compare``: within 1e-5 of
 max|plain|, NaN entries identical; the relative error is printed). For
 K1, ``union_share`` is the share of its last launch's blocks that staged
-their windows' union (absent where the package has no union route).
+their windows' union (absent where the package has no union route); for
+K6, ``width_shares`` the share of its last launch's columns solved at each
+width of its register route (absent where the package does not count
+them). ``sha256`` is the first 16 hex digits of the hash of each call's
+output bytes: two checkouts whose outputs agree to the bit print the same.
 
-To compare two checkouts on one card, run it in one command for each in
-turns (A, B, B, A).
+``--only`` runs the cases whose names start with PREFIX (``window2d``: K6's
+alone). To compare two checkouts on one card, run it in one command for
+each in turns (A, B, B, A).
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -106,18 +120,88 @@ def shuffled(args, seed=3):
                        args[5][perm].contiguous()]
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=".")
-    ap.add_argument("--label", default="")
-    ap.add_argument("--check", action="store_true")
-    opts = ap.parse_args()
-    cs = load_chip_smoke(opts.root)
+def window2d_case(cs, args, kw):
+    """A call of K6 (or, with ``plain=True``, its plain version) on the
+    inputs ``args`` and options ``kw`` of ``window2d_banded``."""
+    def run(plain=False):
+        fn = cs.k1.window2d_plain if plain else cs.k1.window2d_banded
+        return fn(*args, **kw)
+    return run
+
+
+def window2d_cases(cs, dev):
+    """K6's cases: config 8 through the strips, config 7 banded, and the
+    dense network; ``[(name, run), ...]``."""
     torch = cs.torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_kernel_times.py needs a CUDA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda:0")
+    loc = cs.GaspariCohn((cs.R2, cs.R2), cs.dist2)
+    reg = 39 / cs.INF
+    w8 = cs.workload_2d(1024, 100_000, sort_cells=True)
+    plan = cs._strip_plan_2d(loc, w8[4], w8[5], 16, None, True)
+    wt8 = [torch.as_tensor(a, device=dev) for a in w8[:4]]
+    perts, innov = cs._normalized_obs_space(wt8[0][:, wt8[3].long()], wt8[1],
+                                            wt8[2])
+    mean = wt8[0].mean(0)
+    args8, kw8 = cs._strip_inputs_2d(plan, perts, innov,
+                                     (wt8[0] - mean)[None], mean[None], reg,
+                                     16)
+    w7 = cs.workload_2d(128, 1024, sort_cells=False)
+    nb7 = cs.exact_nb(cs.k1.max_in_support_2d(w7[5], w7[4], cs.R2, cs.R2))
+    blk7 = cs.k1.required_obs_block_2d(w7[5][:, 1], w7[4][:, 1], cs.R2)
+    wt7 = [torch.as_tensor(a, device=dev) for a in w7]
+    perts, innov = cs._normalized_obs_space(wt7[0][:, wt7[3].long()], wt7[1],
+                                            wt7[2])
+    mean = wt7[0].mean(0)
+    args7, width7 = cs.k1.window2d_inputs(
+        perts, innov, wt7[5], wt7[4], (wt7[0] - mean)[None], mean[None], reg,
+        cs.R2, cs.R2, blk7)
+    kw7 = dict(width=width7, ens_size=40, nb=nb7, degree=cs.DEGREE,
+               epsilon=1e-5, taper="gc2", strict=True)
+    grid, obs = dense_network(np.random.RandomState(cs.SEED + 25))
+    g, o = grid.shape[0], obs.shape[0]
+    rnd = np.random.RandomState(cs.SEED + 26)
+    perts, innov, sp, mean = (torch.as_tensor(
+        rnd.normal(size=s).astype("f4"), device=dev)
+        for s in ((40, o), (o,), (1, 40, g), (1, g)))
+    blk = cs.k1.required_obs_block_2d(obs[:, 1], grid[:, 1], 8.0)
+    argsd, widthd = cs.k1.window2d_inputs(
+        perts, innov, torch.as_tensor(obs, device=dev),
+        torch.as_tensor(grid, device=dev), sp, mean, reg, 8.0, 8.0, blk)
+    kwd = dict(width=widthd, ens_size=40, nb=52, degree=16, epsilon=1e-5,
+               taper="gc2", strict=False)
+    return [
+        (f"window2d config 8 strips 16 nb {kw8['nb']} degree 16",
+         window2d_case(cs, args8, kw8)),
+        (f"window2d config 7 nb {nb7} degree {cs.DEGREE}",
+         window2d_case(cs, args7, kw7)),
+        ("window2d dense, every slot weighs, 2^16 columns nb 52 degree 16",
+         window2d_case(cs, argsd, kwd)),
+    ]
+
+
+def dense_network(rnd, rows=512, nx=128, per_unit=4):
+    """A grid of ``rows`` rows of ``nx`` columns, 100 apart in y, so that
+    each row's tile sees only its own row's observations: ``per_unit``
+    observations a unit of x within 1 of the row in y. A window of 52 of
+    them lies well inside a GC radius of 8: every slot weighs."""
+    xx, yy = np.meshgrid(np.arange(nx, dtype="f4"),
+                         100.0 * np.arange(rows, dtype="f4"))
+    grid = np.stack([xx.ravel(), yy.ravel()], 1)
+    n = per_unit * nx * rows
+    y = 100.0 * np.repeat(np.arange(rows), per_unit * nx)
+    obs = np.stack([rnd.uniform(-0.5, nx - 0.5, n),
+                    y + rnd.uniform(-1.0, 1.0, n)], 1).astype("f4")
+    return grid, obs
+
+
+def digest(out):
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(out.contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def other_cases(cs, dev):
+    """K1's, K2's and K4's cases; ``[(name, run), ...]``."""
+    torch = cs.torch
     w = cs.build_workload(40, 10000, 1000)
     wt = [torch.as_tensor(x, device=dev) for x in w]
     win_args = cs.window_inputs(w, dev)
@@ -160,18 +244,50 @@ def main():
         cases.append((f"nbh_cheb nb {nb} ns {ns} degree {degree}",
                       lambda a=a, degree=degree, plain=False: cs.run_cheb(
                           a, degree, plain=plain)))
+    return cases
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--only", default="")
+    opts = ap.parse_args()
+    cs = load_chip_smoke(opts.root)
+    torch = cs.torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_kernel_times.py needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    if opts.only.startswith("window2d"):
+        cases = window2d_cases(cs, dev)
+    else:
+        cases = other_cases(cs, dev) + window2d_cases(cs, dev)
+    cases = [(name, run) for name, run in cases
+             if name.startswith(opts.only)]
 
     result = {"label": opts.label, "root": opts.root, "card": cs.card(),
               "ms": {}, "device_ms": {}, "host_ms": {}, "rel_err": {},
-              "union_share": {}}
+              "union_share": {}, "width_shares": {}, "sha256": {}}
     share = getattr(cs.k1, "window1d_union_share", None)
+    widths = getattr(cs.k1, "window2d_width_counts", None)
     for name, run in cases:
+        out = run()
+        result["sha256"][name] = digest(out)
         if opts.check:
-            _, result["rel_err"][name] = cs.compare(run(), run(plain=True),
+            _, result["rel_err"][name] = cs.compare(out, run(plain=True),
                                                     name)
+        del out
         if name.startswith("window1d") and share is not None:
             run()
             result["union_share"][name] = share()
+        if name.startswith("window2d") and widths is not None:
+            run()
+            counts = widths()
+            total = sum(counts.values())
+            result["width_shares"][name] = {w: n / total
+                                            for w, n in counts.items() if n}
         result["ms"][name] = cs.median_ms(run)
         result["device_ms"][name] = cs.device_profile(run, calls=20)[1]
         result["host_ms"][name] = host_ms(run)

@@ -106,7 +106,8 @@ def test_window2d_plan_fits(nb):
     """Every window at ens 40, ns 1 and 3, degree 12, 16 and 48, over a
     config-7 slice (168 slots) and a wide one (4000): a route that fits a
     block, the register route exactly up to K6_REG_MAX_NB, and the plan's
-    bytes as the kernel lays them out."""
+    bytes as the kernel lays them out (the band, the block's count of
+    columns at each width, then the keys or the warps' workspaces)."""
     for ns in (1, 3):
         for degree in (12, 16, 48):
             for width, n_tiles in ((168, 128), (4000, 8192)):
@@ -120,8 +121,9 @@ def test_window2d_plan_fits(nb):
                 band, keys = 8 * width, 8 * (1 << (width - 1).bit_length())
                 per_warp = 4 * k1._k6_floats_per_warp(plan["route"], 40, nb,
                                                       ns, degree)
-                assert plan["smem"] == -(-band // 16) * 16 + max(
-                    keys, plan["warps"] * per_warp)
+                assert plan["smem"] == (-(-band // 16) * 16
+                                        + 4 * len(k1.K6_WIDTHS) + max(
+                                            keys, plan["warps"] * per_warp))
                 assert 128 % plan["splits"] == 0
                 assert 128 // plan["splits"] >= 2 * plan["warps"]
 

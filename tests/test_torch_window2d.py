@@ -172,6 +172,36 @@ def test_plain_matches_jax_reference_f64(rng, taper, ns, n_dims):
                                atol=TOL)
 
 
+def test_plain_nan_observation_poisons_only_where_it_weighs(rng):
+    """A NaN in one observation's perturbations and innovation poisons the
+    columns whose windows hold it at nonzero weight; the columns whose
+    windows hold it at zero weight stay finite: a slot of zero weight is
+    zeroed, not multiplied by its weight, as K6 leaves it out."""
+    c = case_2d(rng, 24, 24, 80)
+    k, o = c["perts"].shape
+    c["perts"][:, o // 2] = np.nan
+    c["innov"][o // 2] = np.nan
+    block = J.required_obs_block_2d(c["obs_xy"][:, 1], c["grid_xy"][:, 1],
+                                    2.0)
+    args, width = T.window2d_inputs(
+        *(torch.from_numpy(np.asarray(c[n])) for n in ARGS[:4]),
+        torch.from_numpy(c["sp"]), torch.from_numpy(c["mean"]),
+        (k - 1) / 1.1, 2.0, 2.0, block)
+    kw = dict(width=width, ens_size=k, nb=64, degree=16, epsilon=1e-5,
+              taper="gc2")
+    out = T.window2d_plain(*args, strict=False, **kw)
+    weighs, holds = [], []
+    for _, sel, w, _ in T._window2d_windows(
+            args[0], args[1], args[2], args[5], width=width, nb=64, k=k,
+            epsilon=1e-5, taper="gc2", tile=128, chunk=16384):
+        nan_slot = torch.isnan(sel[..., 0])
+        weighs.append((nan_slot & (w > 0)).any(-1).reshape(-1))
+        holds.append(nan_slot.any(-1).reshape(-1))
+    weighs, holds = torch.cat(weighs), torch.cat(holds)
+    assert torch.equal(torch.isnan(out).any(1).any(0), weighs)
+    assert 0 < int(weighs.sum()) < int(holds.sum())
+
+
 # -- the wrapper against the JAX kernel (interpret mode), f32 ----------------
 
 CASES = {

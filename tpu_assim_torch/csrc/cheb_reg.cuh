@@ -13,26 +13,38 @@
 // instructions, and S (nb^2 floats) fills half of a column's 22 KB of
 // workspace, so an SM holds 8 warps.
 //
-// This solve: lane l owns rows l and l + 32 of S (nb <= 64), as NBC
-// registers each (nb rounded up to 8, the pad entries zero). The
-// perturbations lie transposed in shared memory, zt[k][NBC], so that
+// This solve: the caller hands it a column's observations of nonzero
+// weight, m of them, compacted in the order of their window slots, and
+// picks NBC, m rounded up to 8 (at least 8), per column. Lane l owns rows
+// l and l + 32 of S (m <= 64), as NBC registers each (the pad entries
+// zero). The perturbations lie transposed in shared memory, zt[k][NBC +
+// 4], so that
 //  - the Gram step reads its own rows' entries zt[kk][l] (consecutive
 //    lanes, consecutive banks) and every column as 16-byte broadcasts of
-//    zt[kk][m..m+3]: 8 FMAs per shared load;
+//    zt[kk][m..m+3]: 8 FMAs per shared load (4 at one row a lane);
 //  - the Clenshaw mat-vec reads v = b1[op] by 16-byte broadcasts and S
-//    never: 8 FMAs per shared load (4 where nb <= 32, one row per lane).
-// Both triangles of S are computed (nb^2 k FMAs against nb(nb+1)k/2):
+//    never: 8 FMAs per shared load, a lane of one row (NBC <= 32) taking
+//    two operands at once, so that each lane runs two chains;
+//  - the apply's 16-byte loads of rows zt[kk], consecutive lanes on
+//    consecutive kk, meet no bank conflict at the stride of NBC + 4 (up
+//    to 8-way at a stride of NBC).
+// Both triangles of S are computed (NBC^2 k FMAs against NBC(NBC+1)k/2):
 // the mat-vec needs every row whole in its lane, and folding the triangle
 // would take S through shared memory again. S's entries are the same
 // products summed in the same order (kk = 0..k-1) as in cheb_core.cuh, the
-// mat-vec's in the order m = 0..nb-1, and the apply's n = 0..nb-1; the
-// zero pad adds exact zeros. A column's workspace is ~11.2 KB at nb 52, so
-// registers, not shared memory, bound the warps per SM (letkf_window2d.cu
-// says how many).
+// mat-vec's in the order m = 0..NBC-1, and the apply's n = 0..NBC-1; the
+// zero pad adds exact zeros. So a window whose zero-weight slots are left
+// out gives the sums of the whole window to the bit: a zero-weight slot
+// adds only zeros to each of them. The one sum whose terms would change
+// lanes is the trace; it is summed by window slot (w.slot, w.diag), lane
+// l adding slots l and l + 32, as the whole window sums it. A column's
+// workspace is ~12.3 KB at NBC 56 and k 40, so registers, not shared
+// memory, bound the warps per SM (letkf_window2d.cu says how many).
 //
-// The caller fills zt (pad columns zero), spc, meanc and row 0 of w_all
-// (pad entries zero), then calls solve_apply<NBC>, which leaves the
-// column's analysis [ns][k] in spc.
+// The caller fills slot (the window slot of each of the m rows), zeroes
+// diag, fills zt (pad columns zero), spc, meanc and row 0 of w_all, then
+// calls solve_apply<NBC> with nb = m, which leaves the column's analysis
+// [ns][k] in spc.
 
 #pragma once
 
@@ -51,16 +63,24 @@ constexpr int kMaxNb = 64;
 // The register row length of a window of nb: nb rounded up to 8.
 __host__ __device__ inline int padded_nb(int nb) { return (nb + 7) & ~7; }
 
-// Floats of one column's workspace, a multiple of 4.
+// Row stride of zt at width nbc: 4 more than nbc, an odd multiple of 4
+// for every nbc a multiple of 8, so that 16-byte loads of consecutive rows
+// by consecutive lanes meet no bank conflict.
+__host__ __device__ inline int zt_ld(int nbc) { return nbc + 4; }
+
+// Floats of one column's workspace at width nbc, a multiple of 4.
 __host__ __device__ inline int workspace_floats(int k, int nbc, int ns,
                                                 int degree) {
   const int n_ent = (1 + ns) * nbc;
-  const int floats = k * nbc + 4 * n_ent + ns * k + ns + 4 * (degree + 1);
+  const int floats = 2 * kMaxNb + k * zt_ld(nbc) + 4 * n_ent + ns * k +
+                     ns + 4 * (degree + 1);
   return (floats + 3) & ~3;
 }
 
 struct Workspace {
-  float* zt;     // [k][nbc] scaled perturbations, transposed (in)
+  int* slot;     // [kMaxNb] the window slot of each row (in)
+  float* diag;   // [kMaxNb] S's diagonal by window slot (zero, in)
+  float* zt;     // [k][zt_ld(nbc)] scaled perturbations, transposed (in)
   float* w_all;  // [1 + ns][nbc]: yh (in), then u_i = zh sp_i
   float* b0;     // three Clenshaw buffers of [1 + ns][nbc]
   float* b1;
@@ -73,13 +93,16 @@ struct Workspace {
   float* f2x;
 };
 
-// The [nbc]-row arrays come first, so each starts 16-byte aligned.
+// The [kMaxNb] and [nbc]-row arrays come first, so each starts 16-byte
+// aligned; slot and diag lie where they lie at every width.
 __device__ __forceinline__ Workspace carve(float* base, int k, int nbc,
                                            int ns, int degree) {
   const int n_ent = (1 + ns) * nbc, dp1 = degree + 1;
   Workspace w;
-  w.zt = base;
-  w.w_all = w.zt + k * nbc;
+  w.slot = reinterpret_cast<int*>(base);
+  w.diag = base + kMaxNb;
+  w.zt = w.diag + kMaxNb;
+  w.w_all = w.zt + k * zt_ld(nbc);
   w.b0 = w.w_all + n_ent;
   w.b1 = w.b0 + n_ent;
   w.b2 = w.b1 + n_ent;
@@ -115,13 +138,43 @@ __device__ __forceinline__ void matvec(const float (&s)[R][NBC],
   }
 }
 
+// matvec for two operands at once: two independent chains a row, each
+// summed as matvec sums it.
+template <int NBC, int R>
+__device__ __forceinline__ void matvec2(const float (&s)[R][NBC],
+                                        const float* v0, const float* v1,
+                                        float (&sv0)[R], float (&sv1)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    sv0[r] = 0.0f;
+    sv1[r] = 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < NBC; m += 4) {
+    const float4 x = ld4(v0 + m);
+    const float4 y = ld4(v1 + m);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sv0[r] = fmaf(s[r][m], x.x, sv0[r]);
+      sv1[r] = fmaf(s[r][m], y.x, sv1[r]);
+      sv0[r] = fmaf(s[r][m + 1], x.y, sv0[r]);
+      sv1[r] = fmaf(s[r][m + 1], y.y, sv1[r]);
+      sv0[r] = fmaf(s[r][m + 2], x.z, sv0[r]);
+      sv1[r] = fmaf(s[r][m + 2], y.z, sv1[r]);
+      sv0[r] = fmaf(s[r][m + 3], x.w, sv0[r]);
+      sv1[r] = fmaf(s[r][m + 3], y.w, sv1[r]);
+    }
+  }
+}
+
 // The steps of cheb_core.cuh's solve_apply, by the warp of lane `lane`,
-// for a window of nb <= NBC observations.
+// for nb <= NBC observations of nonzero weight.
 template <int NBC>
 __device__ inline void solve_apply(const Workspace& w, const float* nodes,
                                    const float* dct, int k, int nb, int ns,
                                    int degree, float reg, int lane) {
   constexpr int R = NBC > 32 ? 2 : 1;  // rows of S per lane
+  constexpr int ZS = NBC + 4;          // zt_ld(NBC)
   const int dp1 = degree + 1;
   const int n_ent = (1 + ns) * NBC;
 
@@ -132,7 +185,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
 #pragma unroll
     for (int m = 0; m < NBC; ++m) s[r][m] = 0.0f;
   for (int kk = 0; kk < k; ++kk) {
-    const float* zrow = w.zt + kk * NBC;
+    const float* zrow = w.zt + kk * ZS;
     float a[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -156,7 +209,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
     for (int i = 0; i < ns; ++i) {
       float acc = 0.0f;
       for (int kk = 0; kk < k; ++kk)
-        acc = fmaf(w.zt[kk * NBC + row], w.spc[i * k + kk], acc);
+        acc = fmaf(w.zt[kk * ZS + row], w.spc[i * k + kk], acc);
       w.w_all[(1 + i) * NBC + row] = acc;
     }
   }
@@ -166,8 +219,8 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
   }
   __syncwarp();
 
-  // 2. the spectral bound, NaN kept
-  float row_max = 0.0f, diag = 0.0f;
+  // 2. the spectral bound, NaN kept; the trace by window slot
+  float row_max = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = lane + 32 * r;
@@ -179,8 +232,12 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
       if (m == row) d = s[r][m];
     }
     row_max = nan_max(row_max, rs);
-    diag += d;
+    w.diag[w.slot[row]] = d;
   }
+  __syncwarp();
+  float diag = 0.0f;
+  diag += w.diag[lane];
+  diag += w.diag[lane + 32];
   const float inf_norm = cheb::warp_max(row_max);
   const float trace = cheb::warp_sum(diag);
   const float lam_ub = nan_max(1.0f + nan_min(inf_norm, trace) / reg, 1.05f);
@@ -206,15 +263,15 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
   }
   __syncwarp();
 
-  // 4. the joint Clenshaw recurrence; each lane writes its own rows
+  // 4. the joint Clenshaw recurrence; where a lane holds one row, two
+  // operands' mat-vecs at once, so that it runs two chains (as a lane of
+  // two rows does); each lane writes its own rows
   const float a2_sc = 2.0f / (lam_ub - 1.0f) / reg;
   float* b0 = w.b0;
   float* b1 = w.b1;
   float* b2 = w.b2;
   for (int mi = degree; mi >= 0; --mi) {
-    for (int op = 0; op <= ns; ++op) {
-      float sv[R];
-      matvec<NBC, R>(s, b1 + op * NBC, sv);
+    const auto step = [&](int op, const float (&sv)[R]) {
       const float c = (op == 0) ? w.c1[mi] : w.c2[mi];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -224,6 +281,20 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
                     ? c * w.w_all[e] + 2.0f * (a2_sc * sv[r] - b1[e]) - b2[e]
                     : c * w.w_all[e] + (a2_sc * sv[r] - b1[e]) - b2[e];
       }
+    };
+    int op = 0;
+    if constexpr (R == 1) {
+      for (; op + 1 <= ns; op += 2) {
+        float sv0[R], sv1[R];
+        matvec2<NBC, R>(s, b1 + op * NBC, b1 + (op + 1) * NBC, sv0, sv1);
+        step(op, sv0);
+        step(op + 1, sv1);
+      }
+    }
+    for (; op <= ns; ++op) {
+      float sv[R];
+      matvec<NBC, R>(s, b1 + op * NBC, sv);
+      step(op, sv);
     }
     __syncwarp();
     if (mi > 0) {
@@ -243,7 +314,7 @@ __device__ inline void solve_apply(const Workspace& w, const float* nodes,
     const int i = f / k, kk = f - i * k;
     const float* u = w.w_all + NBC * (1 + i);
     const float* v = res + NBC * (1 + i);
-    const float* z = w.zt + kk * NBC;
+    const float* z = w.zt + kk * ZS;
     float uq = 0.0f, zv = 0.0f;
 #pragma unroll
     for (int n = 0; n < NBC; n += 4) {

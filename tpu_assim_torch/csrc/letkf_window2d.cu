@@ -19,25 +19,40 @@
 // of the JAX package is the same kernel with (0, 0, o) for every tile.
 //
 // What bounds it on an H100: the per-column work, not bytes. At bench
-// config 8 (2^20 columns, ens 40, nb 52, degree 16) a column costs the
-// Gram matrix, the joint Clenshaw recurrence over 1 + ns operands and the
-// apply: ~3.3e11 FLOP in all, >= ~4.9 ms at the 67 TFLOP/s f32 rate outside
-// the tensor cores, against ~0.1 ms for the 336 MB of state the kernel
-// reads and writes. Each column's chain of dependent steps runs in one
-// warp; what limits the rate is how many instructions a column issues and
-// how many warps an SM holds to hide the FMA chains' latency.
+// config 8 (2^20 columns, ens 40, degree 16) the Gram matrices, the joint
+// Clenshaw recurrences over 1 + ns operands and the applies over each
+// column's 3-46 observations of nonzero weight come to ~6.2e10 FLOP
+// (port_bench/work/k6.py), >= ~0.92 ms at the 67 TFLOP/s f32 rate outside
+// the tensor cores (~3.3e11 FLOP, ~4.9 ms, at the window of 52 for every
+// column), against ~0.1 ms for the 336 MB of state the kernel reads and
+// writes. Each column's chain of dependent steps runs in one warp; what
+// limits the rate is how many instructions a column issues, how many warps
+// an SM holds to hide the chains' latency, and the column's gathers (its
+// window's table rows, a lane a row, and its state column): taking the
+// solve out of the kernel on the card leaves ~40% of its time.
 //
 // Two routes, both kernels, picked by the wrapper's window2d_plan
 // (tpu_assim_torch/ops/cuda/letkf.py) from (k, nb, ns, degree, width):
 //  - the register route, nb <= 64 (cheb_reg.cuh): S in registers, 8 FMAs
-//    per 16-byte shared load in the Gram step and the mat-vec, ~11.2 KB of
-//    shared memory per column at nb 52, 4 warps a block. Registers bound
-//    it: NBC = nb rounded up to 8 is a template argument, and the kernel is
-//    built for at least 3 blocks per SM, 2 at NBC 64, where S alone takes
-//    128 registers a lane. nvcc 12.8 gives (chip_smoke.py phase 1, which
-//    fails on any spill of this route): 168 registers at NBC 48 and 56
-//    and 163 at 40, so 12 warps an SM (bench configs 8 and 7); 131 at 32
-//    (12 warps); 102-111 at 8-24 (16 warps); 215 at 64 (8 warps); no
+//    per 16-byte shared load in the Gram step and the mat-vec. A column
+//    is solved on its observations of nonzero weight alone: the warp
+//    compacts its window's slots of nonzero weight in rank order (a ballot
+//    per slot row) and solves them at their count rounded up to 8, NBCc,
+//    one of 8, 16, ..., NBC (NBC = nb rounded up to 8, a template
+//    argument), chosen per column. The window is taken wider than one
+//    column's support (its nb x-ranks span the tile's whole y-band), so
+//    most slots weigh zero: at bench config 8 (nb 52, NBC 56) a column
+//    holds 3-46 observations of weight, and 99% of columns solve at 16-32.
+//    A zero-weight slot adds only zeros to every sum of the solve, so the
+//    result is the whole window's to the bit. The block counts the columns
+//    solved at each width (the launch's `widths`). ~12.8 KB of shared
+//    memory per column at NBC 56 and k 40, 4 warps a block. Registers
+//    bound it: the kernel is built for at least 3 blocks per SM, 2 at NBC
+//    64, where S alone takes 128 registers a lane; its narrow widths run at
+//    the occupancy of its widest. nvcc 12.8 gives (chip_smoke.py phase 1,
+//    which fails on any spill of this route): 168 registers at NBC 48 and
+//    56 and 164 at 40, so 12 warps an SM (bench configs 8 and 7); 128 at
+//    32 (12 warps); 107-120 at 8-24 (16 warps); 218 at 64 (8 warps); no
 //    spills. The shared route takes 64 registers.
 //  - the shared route, nb > 64 (cheb_core.cuh, the design of K1 and K4): S
 //    in shared memory, one FMA per two shared loads, up to 8 warps a block
@@ -72,6 +87,8 @@ namespace {
 
 constexpr int kRegWarps = 4;    // warps of a register-route block
 constexpr int kSmemWarps = 8;   // most warps of a shared-route block
+// The register route's widths: 8, 16, ..., cheb_reg::kMaxNb.
+constexpr int kWidths = cheb_reg::kMaxNb / 8;
 using cheb::kFull;
 
 struct Params {
@@ -84,6 +101,8 @@ struct Params {
   const float* nodes;  // [d + 1] Chebyshev nodes on [-1, 1]
   const float* dct;    // [d + 1, d + 1] node values -> coefficients
   float* out;          // [ns, k, g]
+  int* widths;         // [kWidths] columns the register route solved at
+                       // each width (zeroed before the launch)
   int k, n_dims, n_rows, g, ns, nb, degree;
   int width;           // slots per slice
   int width_pow2;      // the sort's length: width rounded up to a power of 2
@@ -103,11 +122,16 @@ __host__ __device__ int pow2_at_least(int n) {
   return p;
 }
 
-// Bytes of the band's sorted x and slot indices, 16-aligned. The sort's
+// Bytes of the band's sorted x and slot indices, 16-aligned, and of the
+// block's count of columns at each width (register route). The sort's
 // 64-bit keys lie behind them, in the space the warps' workspaces take
 // once the band is sorted.
 __host__ __device__ size_t band_bytes(int width) {
-  return (8u * width + 15) & ~static_cast<size_t>(15);
+  return ((8u * width + 15) & ~static_cast<size_t>(15)) +
+         sizeof(int) * kWidths;
+}
+__device__ int* width_counts(unsigned char* smem, int width) {
+  return reinterpret_cast<int*>(smem + band_bytes(width)) - kWidths;
 }
 __host__ __device__ size_t key_bytes(int width) {
   return 8u * pow2_at_least(width);
@@ -115,8 +139,11 @@ __host__ __device__ size_t key_bytes(int width) {
 
 // Floats of shared memory per warp of each route.
 int floats_per_warp(int route, int k, int nb, int ns, int degree) {
+  // the solve's workspace at the widest width, and the kept slots' table
+  // rows and sqrt weights [NBC]
+  const int nbc = cheb_reg::padded_nb(nb);
   if (route == 0)
-    return cheb_reg::workspace_floats(k, cheb_reg::padded_nb(nb), ns, degree);
+    return cheb_reg::workspace_floats(k, nbc, ns, degree) + 2 * nbc;
   // the solve's workspace, the sqrt taper weights [nb] and the table rows of
   // the window [nb]
   return (cheb::workspace_floats(k, nb, ns, degree) + 2 * nb + 3) & ~3;
@@ -270,20 +297,42 @@ __device__ __forceinline__ void window_slot(const Params& p,
   *sw = sqrtf(w);
 }
 
-// The register route: NBC = nb rounded up to 8, S in registers.
+// cheb_reg::solve_apply at the width nbc, a multiple of 8 up to NBC.
+template <int NBC>
+__device__ __forceinline__ void solve_at(int nbc,
+                                         const cheb_reg::Workspace& ws,
+                                         const Params& p, int m, float reg,
+                                         int lane) {
+  if constexpr (NBC > 8) {
+    if (nbc < NBC) {
+      solve_at<NBC - 8>(nbc, ws, p, m, reg, lane);
+      return;
+    }
+  }
+  cheb_reg::solve_apply<NBC>(ws, p.nodes, p.dct, p.k, m, p.ns, p.degree, reg,
+                             lane);
+}
+
+// The register route: NBC = nb rounded up to 8, S in registers, each
+// column solved at the width of its observations of nonzero weight.
 template <int NBC>
 __global__ void __launch_bounds__(kRegWarps * 32, NBC >= 64 ? 2 : 3)
 window2d_reg_kernel(const Params p) {
-  constexpr int R = NBC > 32 ? 2 : 1;  // window slots (rows of S) per lane
+  constexpr int R = NBC > 32 ? 2 : 1;  // window slots per lane
   extern __shared__ __align__(16) unsigned char smem[];
+  int* width_count = width_counts(smem, p.width);
+  if (threadIdx.x < kWidths) width_count[threadIdx.x] = 0;
   const Part part = sort_band(p, smem);
   if (part.slice == nullptr) return;
   const int k = p.k, nb = p.nb, ns = p.ns, rows = k + 1 + p.n_dims;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;  // the lanes under this one
   float* base = reinterpret_cast<float*>(smem + band_bytes(p.width)) +
                 static_cast<size_t>(warp) * p.per_warp;
-  const cheb_reg::Workspace ws = cheb_reg::carve(base, k, NBC, ns, p.degree);
+  int* kept_row = reinterpret_cast<int*>(
+      base + cheb_reg::workspace_floats(k, NBC, ns, p.degree));
+  float* kept_sw = reinterpret_cast<float*>(kept_row + NBC);
   const float reg = p.scal[0];
   const float sup = __fmul_rn(p.support_z, p.scal[1]);  // f32(z*) f32(rx)
 
@@ -292,44 +341,64 @@ window2d_reg_kernel(const Params p) {
     const float gx = p.grid[col];
     const float gy = p.grid[p.g + col];
     const Window win = find_window(p, part, gx, sup, lane);
-    // each lane gathers its slots j = lane + 32 r; pad slots are zero
-    int row[R];
-    float sw[R];
+    // each lane weighs its slots j = lane + 32 r; the warp keeps those of
+    // nonzero weight, rank order kept: slot j goes to row at[r]
+    int row[R], at[R];
+    float sw[R], y[R];
+    int m = 0;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = lane + 32 * r;
-      float y = 0.0f;
       row[r] = -1;
       sw[r] = 0.0f;
+      y[r] = 0.0f;
       if (j < nb)
         window_slot(p, part, win.start + j, col, gx, gy, &row[r], &sw[r],
-                    &y);
-      if (j < NBC) ws.w_all[j] = (j < nb) ? y * sw[r] + win.poison_y : 0.0f;
+                    &y[r]);
+      const unsigned keep = __ballot_sync(kFull, sw[r] > 0.0f);
+      at[r] = m + __popc(keep & below);
+      m += __popc(keep);
     }
-    for (int kk = 0; kk < k; ++kk) {
+    const int nbc = max(8, (m + 7) & ~7);
+    const cheb_reg::Workspace ws = cheb_reg::carve(base, k, nbc, ns, p.degree);
+    ws.diag[lane] = 0.0f;
+    ws.diag[lane + 32] = 0.0f;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int j = lane + 32 * r;
-        if (j >= NBC) continue;
-        const float v =
-            (row[r] >= 0)
-                ? part.slice[static_cast<size_t>(row[r]) * rows + kk]
-                : 0.0f;
-        ws.zt[kk * NBC + j] = v * sw[r];
-      }
+    for (int r = 0; r < R; ++r) {
+      if (!(sw[r] > 0.0f)) continue;
+      ws.slot[at[r]] = lane + 32 * r;
+      kept_row[at[r]] = row[r];
+      kept_sw[at[r]] = sw[r];
+      ws.w_all[at[r]] = y[r] * sw[r] + win.poison_y;
+    }
+    // the strict guard's NaN reaches every output, also where m is 0
+    for (int e = m + lane; e < nbc; e += 32) ws.w_all[e] = win.poison_y;
+    __syncwarp();
+    const int zs = cheb_reg::zt_ld(nbc);
+    for (int e = lane; e < nbc; e += 32) {
+      const bool kept = e < m;
+      const float* o =
+          part.slice + static_cast<size_t>(kept ? kept_row[e] : 0) * rows;
+      const float s = kept ? kept_sw[e] : 0.0f;
+      for (int kk = 0; kk < k; ++kk)
+        ws.zt[kk * zs + e] = kept ? o[kk] * s : 0.0f;
     }
     for (int f = lane; f < ns * k; f += 32)
       ws.spc[f] = p.sp[static_cast<size_t>(f) * p.g + col];
     for (int i = lane; i < ns; i += 32)
       ws.meanc[i] = p.mean[static_cast<size_t>(i) * p.g + col];
+    if (lane == 0) atomicAdd(&width_count[nbc / 8 - 1], 1);
     __syncwarp();
 
-    cheb_reg::solve_apply<NBC>(ws, p.nodes, p.dct, k, nb, ns, p.degree, reg,
-                               lane);
+    solve_at<NBC>(nbc, ws, p, m, reg, lane);
     for (int f = lane; f < ns * k; f += 32)
       p.out[static_cast<size_t>(f) * p.g + col] = ws.spc[f];
     __syncwarp();
   }
+  __syncthreads();
+  if (p.widths != nullptr && threadIdx.x < kWidths &&
+      width_count[threadIdx.x] > 0)
+    atomicAdd(&p.widths[threadIdx.x], width_count[threadIdx.x]);
 }
 
 // The shared route: the workspace of cheb_core.cuh, S in shared memory.
@@ -410,14 +479,17 @@ size_t window2d_smem_bytes(int route, int k, int nb, int ns, int degree,
 }
 
 // The analysis of every grid column; all pointers are device memory, g a
-// multiple of tile, tile a multiple of splits. `route`, `warps` and
+// multiple of tile, tile a multiple of splits. `widths` (int32[8], or
+// null) is zeroed on the stream, then takes the columns the register
+// route solved at each width 8, 16, ..., 64. `route`, `warps` and
 // `splits` come from the wrapper's plan (window2d_plan). Returns the
 // cudaError_t of the launch (0 on success).
 int window2d_launch(const float* table, const int* bands, const float* grid,
                     const float* sp, const float* mean, const float* scal,
-                    const float* nodes, const float* dct, float* out, int k,
-                    int n_dims, int n_rows, int g, int ns, int nb, int degree,
-                    int width, int tile, int taper, int strict,
+                    const float* nodes, const float* dct, float* out,
+                    int* widths, int k, int n_dims, int n_rows, int g,
+                    int ns, int nb, int degree, int width, int tile,
+                    int taper, int strict,
                     float support_z, float epsilon, int route, int warps,
                     int splits, void* stream) {
   if (g <= 0) return 0;
@@ -429,7 +501,12 @@ int window2d_launch(const float* table, const int* bands, const float* grid,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem =
       window2d_smem_bytes(route, k, nb, ns, degree, width, warps);
-  Params p{table, bands, grid, sp, mean, scal, nodes, dct, out,
+  if (widths != nullptr) {
+    const cudaError_t err =
+        cudaMemsetAsync(widths, 0, kWidths * sizeof(int), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  Params p{table, bands, grid, sp, mean, scal, nodes, dct, out, widths,
            k, n_dims, n_rows, g, ns, nb, degree, width,
            pow2_at_least(width), tile, splits, taper, strict, warps,
            floats_per_warp(route, k, nb, ns, degree), support_z, epsilon};

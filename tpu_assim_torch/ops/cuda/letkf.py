@@ -25,7 +25,10 @@ helpers they share with the JAX package:
   :func:`letkf_window_analysis_fused_2d` and the x-strips of
   :func:`tpu_assim_torch.analysis.make_strip_letkf_2d`; two routes by
   window size (:func:`window2d_plan`), the Gram matrix in registers
-  (``csrc/cheb_reg.cuh``) or in shared memory (``csrc/cheb_core.cuh``).
+  (``csrc/cheb_reg.cuh``) or in shared memory (``csrc/cheb_core.cuh``);
+  the register route solves each column at the width of its observations
+  of nonzero weight, and counts the columns at each width
+  (:func:`window2d_width_counts`).
 
 K1 does, per grid column: the window of ``nb`` observations around the
 column's rank among the sorted observation coordinates, clamped onto its
@@ -89,6 +92,7 @@ __all__ = [
     "window2d_inputs",
     "window2d_plain",
     "window2d_plan",
+    "window2d_width_counts",
     "window_analysis_plain",
 ]
 
@@ -100,6 +104,11 @@ LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0, "window2d": 0}
 # count. Nothing reads the tensor during a call; window1d_union_share does,
 # with a synchronise.
 WINDOW1D_UNION_BLOCKS = {"flag": None, "blocks": 0}
+
+# K6's last launch: its int32[8] on the card, the columns its register
+# route solved at each width of K6_WIDTHS. Nothing reads the tensor during
+# a call; window2d_width_counts does, with a synchronise.
+WINDOW2D_WIDTHS = {"counts": None}
 
 # Why a direct launch refuses an input that requires a gradient.
 _NO_GRAD_LAUNCH = {
@@ -1206,24 +1215,52 @@ def window2d_plain(table, bands, grid, sp, mean, scal, *, width, ens_size,
     ``clip(clip(rank - nb//2, high - nb, low), 0, width - nb)`` with rank,
     low and high its counts of x <= gx, x <= gx - z* rx and x < gx + z* rx;
     the taper is the product of the per-dimension tapers, cut at
-    ``epsilon``; ``strict`` (with ``width > nb``) NaN-poisons columns whose
-    counts differ by more than ``nb``; then the Chebyshev solve and apply.
-    Runs ``chunk`` columns at a time, to bound the gathered windows.
+    ``epsilon``; a slot of zero weight takes no part (its perturbations and
+    innovation are zeroed, not multiplied by its zero weight, so a NaN there
+    poisons nothing); ``strict`` (with ``width > nb``) NaN-poisons columns
+    whose counts differ by more than ``nb``; then the Chebyshev solve and
+    apply. Runs ``chunk`` columns at a time, to bound the gathered windows.
     """
     dtype, device = table.dtype, table.device
     k = ens_size
+    reg = scal[0]
+    nodes, dct = (torch.from_numpy(a).to(dtype=dtype, device=device)
+                  for a in _cheb_nodes_dct(degree))
+    outs = []
+    for cols, sel, w, overflow in _window2d_windows(
+            table, bands, grid, scal, width=width, nb=nb, k=k,
+            epsilon=epsilon, taper=taper, tile=tile, chunk=chunk):
+        n_c = w.shape[0] * w.shape[1]
+        sw = safe_sqrt(w).reshape(n_c, nb).T                  # [nb, C]
+        weighs = sw > 0
+        zh = torch.where(weighs[:, None], sel[..., :k].reshape(
+            n_c, nb, k).permute(1, 2, 0), 0.0) * sw[:, None]
+        yh = torch.where(weighs, sel[..., k].reshape(n_c, nb).T, 0.0) * sw
+        if strict and width > nb:
+            yh = yh + torch.where(overflow, math.nan, 0.0).to(
+                dtype).reshape(1, n_c)
+        outs.append(_cheb_solve_apply(nodes, dct, zh, yh, sp[:, :, cols],
+                                      mean[:, None, cols], reg, ens_size,
+                                      degree))
+    return torch.cat(outs, dim=2)
+
+
+def _window2d_windows(table, bands, grid, scal, *, width, nb, k, epsilon,
+                      taper, tile, chunk):
+    """The windows of :func:`window2d_plain`, ``chunk`` columns at a time:
+    per chunk of tiles its grid columns (a slice), the window's table rows
+    [T, tile, nb, rows], their product-taper weights [T, tile, nb] (zero
+    outside the slice and at or under ``epsilon``) and whether a column has
+    more than ``nb`` band observations in its x-cutoff [T, tile]."""
+    dtype, device = table.dtype, table.device
     n_dims = grid.shape[0]
     n_tiles = grid.shape[1] // tile
-    reg = scal[0]
     radii = scal[1:]
     sup = torch.as_tensor(taper_support_z(taper, epsilon), dtype=dtype,
                           device=device) * radii[0]
-    nodes, dct = (torch.from_numpy(a).to(dtype=dtype, device=device)
-                  for a in _cheb_nodes_dct(degree))
     iota = torch.arange(width, device=device)
     slots = torch.arange(nb, device=device)
     per = max(chunk // tile, 1)
-    outs = []
     for t0 in range(0, n_tiles, per):
         t1 = min(n_tiles, t0 + per)
         n_t, cols = t1 - t0, slice(t0 * tile, t1 * tile)
@@ -1255,17 +1292,7 @@ def window2d_plain(table, bands, grid, sp, mean, scal, *, width, ens_size,
                                           - g[2 + j][..., None])
                                 / radii[2 + j], taper, 0.0)
         w = torch.where(valid & (w > epsilon), w, 0.0)
-        n_c = n_t * tile
-        sw = safe_sqrt(w).reshape(n_c, nb).T                  # [nb, C]
-        zh = sel[..., :k].reshape(n_c, nb, k).permute(1, 2, 0) * sw[:, None]
-        yh = torch.where(valid, sel[..., k], 0.0).reshape(n_c, nb).T * sw
-        if strict and width > nb:
-            yh = yh + torch.where(high - low > nb, math.nan, 0.0).to(
-                dtype).reshape(1, n_c)
-        outs.append(_cheb_solve_apply(nodes, dct, zh, yh, sp[:, :, cols],
-                                      mean[:, None, cols], reg, ens_size,
-                                      degree))
-    return torch.cat(outs, dim=2)
+        yield cols, sel, w, high - low > nb
 
 
 @functools.lru_cache(maxsize=None)
@@ -1275,7 +1302,7 @@ def _window2d_lib():
     lib = load_library("letkf_window2d")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window2d_launch.argtypes = (
-        [ptr] * 9 + [i32] * 11 + [f32] * 2 + [i32] * 3 + [ptr])
+        [ptr] * 10 + [i32] * 11 + [f32] * 2 + [i32] * 3 + [ptr])
     lib.window2d_launch.restype = i32
     lib.window2d_smem_bytes.argtypes = [i32] * 7
     lib.window2d_smem_bytes.restype = ctypes.c_size_t
@@ -1292,6 +1319,9 @@ K6_ROUTES = ("register", "shared")
 K6_REG_MAX_NB = 64
 K6_REG_WARPS = 4
 K6_SMEM_MAX_WARPS = 8
+# The widths the register route solves a column at: its observations of
+# nonzero weight rounded up to 8.
+K6_WIDTHS = tuple(range(8, K6_REG_MAX_NB + 1, 8))
 # Blocks that fill the card: 132 SMs, each holding 2-3 of them, several
 # waves over, so that the last wave's imbalance is small.
 _K6_FILL_BLOCKS = 16 * 132
@@ -1299,22 +1329,25 @@ _K6_FILL_BLOCKS = 16 * 132
 
 def _band_bytes(width: int) -> tuple:
     """Shared memory of a tile's sorted band (letkf_window2d.cu:band_bytes,
-    key_bytes): the sorted x and slot of each slot, 16-byte aligned; and the
-    sort's 64-bit keys over the width rounded up to a power of 2, which the
-    warps' workspaces overwrite once the band is sorted."""
+    key_bytes): the sorted x and slot of each slot, 16-byte aligned, and
+    the block's counts of columns at each width; and the sort's 64-bit
+    keys over the width rounded up to a power of 2, which the warps'
+    workspaces overwrite once the band is sorted."""
     pow2 = 1 << max(width - 1, 0).bit_length()
-    return (8 * width + 15) & ~15, 8 * pow2
+    return ((8 * width + 15) & ~15) + 4 * len(K6_WIDTHS), 8 * pow2
 
 
 def _k6_floats_per_warp(route: str, k: int, nb: int, ns: int,
                         degree: int) -> int:
     """Shared floats of one column's workspace on ``route``
-    (cheb_reg.cuh:workspace_floats; cheb_core.cuh:workspace_floats plus the
+    (cheb_reg.cuh:workspace_floats at the widest width plus the kept
+    slots' rows and weights; cheb_core.cuh:workspace_floats plus the
     window's weights and rows)."""
     if route == "register":
         nbc = (nb + 7) & ~7
-        return _round4(k * nbc + 4 * (1 + ns) * nbc + ns * k + ns
-                       + 4 * (degree + 1))
+        return _round4(2 * K6_REG_MAX_NB + k * (nbc + 4)
+                       + 4 * (1 + ns) * nbc + ns * k + ns
+                       + 4 * (degree + 1)) + 2 * nbc
     return _round4(_cheb_core_floats(k, nb, ns, degree) + 2 * nb)
 
 
@@ -1366,20 +1399,34 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     _check_launchable("window2d", (table, bands, grid, sp, mean, scal), smem)
     nodes, dct = _cheb_tables(degree, table.device)
     out = torch.empty_like(sp)
+    widths = torch.empty(len(K6_WIDTHS), dtype=torch.int32,
+                         device=table.device)
     with span("kernel.window2d"), torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.window2d_launch(
             table.data_ptr(), bands.data_ptr(), grid.data_ptr(),
             sp.data_ptr(), mean.data_ptr(), scal.data_ptr(),
-            nodes.data_ptr(), dct.data_ptr(), out.data_ptr(), k, n_dims,
-            n_rows, g, ns, nb, degree, width, tile, _TAPERS.index(taper),
+            nodes.data_ptr(), dct.data_ptr(), out.data_ptr(),
+            widths.data_ptr(), k, n_dims, n_rows, g, ns, nb, degree, width,
+            tile, _TAPERS.index(taper),
             int(bool(strict)), taper_support_z(taper, epsilon),
             float(epsilon), route, plan["warps"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError("window2d kernel launch failed: "
                            + lib.window2d_error_string(err).decode())
     LAUNCHES["window2d"] += 1
+    WINDOW2D_WIDTHS["counts"] = widths
     return out
+
+
+def window2d_width_counts():
+    """The columns K6's last launch solved at each width of its register
+    route, ``{8: n, 16: n, ..., 64: n}`` (all 0 on the shared route), read
+    from the card with a synchronise; None before any launch."""
+    counts = WINDOW2D_WIDTHS["counts"]
+    if counts is None:
+        return None
+    return dict(zip(K6_WIDTHS, counts.tolist()))
 
 
 def _window2d_forward(table, bands, grid, sp, mean, scal, width, ens_size,
