@@ -2,10 +2,17 @@
 // 1-D window kernel (letkf_window1d.cu, K1) and the neighborhood kernel
 // (letkf_nbh_cheb.cu, K4) on their register route, windows of nb <= 64:
 // the arithmetic of cheb_core.cuh with the Gram matrix S in registers, as
-// in cheb_reg.cuh (K6's register route, which stays as it is), and small
-// windows packed several to a warp. It is the port of _cheb_solve_apply in
+// in cheb_reg.cuh (K6's register route), and small windows packed several
+// to a warp. It is the port of _cheb_solve_apply in
 // tpu_assim/ops/pallas/letkf.py; its plain PyTorch twin is
 // tpu_assim_torch/ops/cuda/letkf.py:_cheb_solve_apply.
+//
+// K6 keeps its own copy. Taken through this one (one column a warp, zt
+// rows NBC + 4 apart, its trace by window slot) its NBC 56 instance spills
+// under its 3 blocks an SM while u_1 rides in the Gram step, and its
+// output's bits move: nvcc fuses the products of the Clenshaw update
+// c y + 2 (a Sv - b1) - b2 into FMAs differently in each instance, and no
+// one form keeps K6's bits (c y rounded first) and K1's and K4's.
 //
 // What bounded K1 and K4 on cheb_core.cuh (one warp a column, S in shared
 // memory) on an H100: shared loads and idle lanes. The Gram step took two

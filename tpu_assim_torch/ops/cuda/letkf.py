@@ -30,6 +30,11 @@ helpers they share with the JAX package:
   of nonzero weight, and counts the columns at each width
   (:func:`window2d_width_counts`).
 
+Each kernel's launch plan is Python arithmetic that mirrors its source's
+shared-memory layout, so that the CPU tests check every shape; it is
+checked against the library's own bytes once per shape
+(:func:`_launch_plan`).
+
 K1 does, per grid column: the window of ``nb`` observations around the
 column's rank among the sorted observation coordinates, clamped onto its
 in-support range; the Gaspari-Cohn taper with sqrt-weight scaling; then the
@@ -673,36 +678,47 @@ def nbh_cheb_plan(k: int, nb: int, ns: int, degree: int, g: int) -> dict:
                       nb <= CHEB_REG_MAX_NB)
 
 
-def _check_plan(name, plan, smem, cols_per_warp, slots=0):
-    """The library's own shared bytes, columns a warp and union slots
-    (K1's) for a plan."""
-    if (smem, cols_per_warp, slots) != (plan["smem"], plan["cols_per_warp"],
-                                        plan.get("union", 0)):
-        raise RuntimeError(
-            f"{name}: the plan {plan} differs from the kernel's {smem} "
-            f"bytes, {cols_per_warp} columns a warp and {slots} union "
-            f"slots")
-
-
 @functools.lru_cache(maxsize=256)
-def _cheb_launch_plan(name: str, k: int, nb: int, ns: int, degree: int,
-                      g: int) -> dict:
-    """K1's (``name`` "window1d") or K4's ("nbh_cheb") plan, checked once
-    per shape against its library's own shared bytes and columns a warp."""
-    if name == "nbh_cheb":
-        plan = nbh_cheb_plan(k, nb, ns, degree, g)
+def _launch_plan(name: str, *shape) -> dict:
+    """The plan of K1 (``name`` "window1d"), K4 ("nbh_cheb"), K5
+    ("nbh_ns") or K6 ("window2d") for ``shape``, its plan function's
+    arguments, checked once per shape against its library's own layout:
+    the block's shared bytes, and the columns a warp and K1's union slots
+    where the kernel has them."""
+    if name == "window1d":
+        plan = window1d_plan(*shape)
+        k, nb, ns, degree, _ = shape
+        lib = _window1d_lib()
+        slots = lib.window1d_union_slots(nb) if plan["union"] else 0
+        ours = (plan["smem"], plan["cols_per_warp"], plan["union"])
+        theirs = (lib.window1d_smem_bytes(k, nb, ns, degree, plan["warps"],
+                                          slots),
+                  lib.window1d_cols_per_warp(nb, slots), slots)
+    elif name == "nbh_cheb":
+        plan = nbh_cheb_plan(*shape)
+        k, nb, ns, degree, _ = shape
         lib = _nbh_cheb_lib()
-        _check_plan(name, plan,
-                    lib.nbh_cheb_smem_bytes(k, nb, ns, degree, plan["warps"]),
-                    lib.nbh_cheb_cols_per_warp(nb))
-        return plan
-    plan = window1d_plan(k, nb, ns, degree, g)
-    lib = _window1d_lib()
-    slots = lib.window1d_union_slots(nb) if plan["union"] else 0
-    _check_plan(name, plan,
-                lib.window1d_smem_bytes(k, nb, ns, degree, plan["warps"],
-                                        slots),
-                lib.window1d_cols_per_warp(nb, slots), slots)
+        ours = (plan["smem"], plan["cols_per_warp"])
+        theirs = (lib.nbh_cheb_smem_bytes(k, nb, ns, degree, plan["warps"]),
+                  lib.nbh_cheb_cols_per_warp(nb))
+    elif name == "nbh_ns":
+        plan = nbh_ns_plan(*shape)
+        k, nb, _ = shape
+        lib = _nbh_ns_lib()
+        ours = (plan["smem"], plan["cols_per_warp"])
+        theirs = (lib.nbh_ns_smem_bytes(k, nb, plan["warps"]),
+                  lib.nbh_ns_cols_per_warp(nb))
+    else:
+        plan = window2d_plan(*shape)
+        k, nb, ns, degree, width = shape[:5]
+        ours = (plan["smem"],)
+        theirs = (_window2d_lib().window2d_smem_bytes(
+            K6_ROUTES.index(plan["route"]), k, nb, ns, degree, width,
+            plan["warps"]),)
+    if ours != theirs:
+        raise RuntimeError(
+            f"{name}: the plan {plan} differs from the kernel's layout "
+            f"{theirs} (shared bytes, columns a warp, union slots)")
     return plan
 
 
@@ -711,7 +727,7 @@ def _launch_window1d(perts, innov, obs_x, grid_x, sp, mean, reg, radius, nb,
     lib = _window1d_lib()
     k, o = perts.shape
     ns, _, g = sp.shape
-    plan = _cheb_launch_plan("window1d", k, nb, ns, degree, g)
+    plan = _launch_plan("window1d", k, nb, ns, degree, g)
     _check_launchable("window1d", (perts, innov, obs_x, grid_x, sp, mean),
                       plan["smem"])
     device = perts.device
@@ -917,7 +933,7 @@ def _launch_nbh_cheb(zh, yh, sp, mean, reg, degree):
     lib = _nbh_cheb_lib()
     nb, k, g = zh.shape
     ns = sp.shape[0]
-    plan = _cheb_launch_plan("nbh_cheb", k, nb, ns, degree, g)
+    plan = _launch_plan("nbh_cheb", k, nb, ns, degree, g)
     _check_launchable("nbh_cheb", (zh, yh, sp, mean), plan["smem"])
     device = zh.device
     nodes, dct = _cheb_tables(degree, device)
@@ -1128,9 +1144,7 @@ def nbh_ns_plan(k: int, nb: int, g: int) -> dict:
 def _launch_nbh_ns(zh, yh, sp, mean, reg, num_iters):
     lib = _nbh_ns_lib()
     g, nb, k = zh.shape
-    plan = nbh_ns_plan(k, nb, g)
-    _check_plan("nbh_ns", plan, lib.nbh_ns_smem_bytes(k, nb, plan["warps"]),
-                lib.nbh_ns_cols_per_warp(nb))
+    plan = _launch_plan("nbh_ns", k, nb, g)
     _check_launchable("nbh_ns", (zh, yh, sp, mean), plan["smem"])
     out = torch.empty_like(sp)
     with torch.cuda.device(zh.device):
@@ -1389,14 +1403,9 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     n_rows = table.shape[0]
     n_dims, g = grid.shape
     ns, k, _ = sp.shape
-    plan = window2d_plan(k, nb, ns, degree, width, g // tile, tile)
-    route = K6_ROUTES.index(plan["route"])
-    smem = lib.window2d_smem_bytes(route, k, nb, ns, degree, width,
-                                   plan["warps"])
-    if smem != plan["smem"]:
-        raise RuntimeError(f"window2d: the plan's {plan['smem']} bytes of "
-                           f"shared memory differ from the kernel's {smem}")
-    _check_launchable("window2d", (table, bands, grid, sp, mean, scal), smem)
+    plan = _launch_plan("window2d", k, nb, ns, degree, width, g // tile, tile)
+    _check_launchable("window2d", (table, bands, grid, sp, mean, scal),
+                      plan["smem"])
     nodes, dct = _cheb_tables(degree, table.device)
     out = torch.empty_like(sp)
     widths = torch.empty(len(K6_WIDTHS), dtype=torch.int32,
@@ -1410,7 +1419,8 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
             widths.data_ptr(), k, n_dims, n_rows, g, ns, nb, degree, width,
             tile, _TAPERS.index(taper),
             int(bool(strict)), taper_support_z(taper, epsilon),
-            float(epsilon), route, plan["warps"], plan["splits"], stream)
+            float(epsilon), K6_ROUTES.index(plan["route"]), plan["warps"],
+            plan["splits"], stream)
     if err != 0:
         raise RuntimeError("window2d kernel launch failed: "
                            + lib.window2d_error_string(err).decode())
