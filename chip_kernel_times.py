@@ -28,24 +28,31 @@ observations (nb 8, degree 16). K6 at bench.py's config 8 (1024 x 1024
 columns, ens 40, 10^5 observed cells, GC radius 4 in x and y, degree 16)
 through the strip plan of the benchmark's ``grid2d-1024`` cell (16 strips,
 the plan's window), at config 7 (128 x 128, 1024 cells, the exact window,
-degree 12), and on a dense network where every slot of every window
-weighs (512 rows of 128 columns, 2^18 observations, ``dense_network``; GC
-radius 8, nb 52, degree 16, not strict): the side of K6's per-column width
-where there is nothing to leave out. Per call, three times: ``ms``, the
+degree 12), on a dense network where every slot of every window weighs
+(512 rows of 128 columns, 2^18 observations, ``dense_network``; GC radius
+8, nb 52, degree 16, not strict): the side of K6's per-column width where
+there is nothing to leave out, and whose slices are too wide to stage; and
+config 7 on a 2 x 4 tile mesh of virtual shards of the card
+(``chip_smoke.py``'s phase 26: 8 launches of 16 tiles, too few to
+stage). Per call, three times: ``ms``, the
 median of 20 samples of 10 back-to-back calls between CUDA events (what a
 caller waits, host-bound where the wrapper's host work outlasts the
 kernel; the ``ms`` of chip_smoke.py's kernels line); ``device_ms``, the device time of a call by
 torch.profiler over 20 calls (every kernel the call launches: K1's
-sortedness check included); ``host_ms``, the host's time to issue one call,
-over 200 calls without a wait. ``--check`` also holds each kernel against
-its plain version on the same inputs (``compare``: within 1e-5 of
-max|plain|, NaN entries identical; the relative error is printed). For
-K1, ``union_share`` is the share of its last launch's blocks that staged
-their windows' union (absent where the package has no union route); for
-K6, ``width_shares`` the share of its last launch's columns solved at each
-width of its register route (absent where the package does not count
-them). ``sha256`` is the first 16 hex digits of the hash of each call's
-output bytes: two checkouts whose outputs agree to the bit print the same.
+sortedness check included), and for K6's cases ``k6_device_ms``, that of
+its launches alone; ``host_ms``, the host's time to issue one call, over
+200 calls without a wait. ``--check`` also holds each kernel against its
+plain version on the same inputs (``compare``: within 1e-5 of max|plain|,
+NaN entries identical; the relative error is printed; the halo case has
+none). For K1, ``union_share`` is the share of its last launch's blocks
+that staged their windows' union (absent where the package has no union
+route); for K6, ``width_shares`` the share of its last launch's columns
+solved at each width of its register route (absent where the package
+does not count them) and ``staged_share`` the share of its last launch's
+blocks that staged their slice of the observation table (absent where the
+package has no staging). ``sha256`` is the first 16 hex digits of the hash
+of each call's output bytes: two checkouts whose outputs agree to the bit
+print the same.
 
 ``--only`` runs the cases whose names start with PREFIX (``window2d``: K6's
 alone). To compare two checkouts on one card, run it in one command for
@@ -129,9 +136,38 @@ def window2d_case(cs, args, kw):
     return run
 
 
+def halo2d_case(cs, dev):
+    """Bench config 7 on a 2 x 4 tile mesh of virtual shards of the card,
+    the window analysis with a halo of one tile, as ``chip_smoke.py``'s
+    phase 26 builds it: one K6 launch a shard. It has no plain version
+    (``run(plain=True)`` gives None)."""
+    torch = cs.torch
+    w7 = cs.workload_2d(128, 1024, sort_cells=False)
+    n7, m_rows, m_cols = 128, 2, 4
+    obs_ij = np.stack([w7[3] // n7, w7[3] % n7], 1).astype(np.int32)
+    grid7 = w7[4].reshape(n7, n7, 2)
+    sh7 = cs.shard_observations_2d(w7[1], w7[2], obs_ij, w7[5], (n7, n7),
+                                   (m_rows, m_cols))
+    nb7, blk7 = cs.halo2d_sizes(sh7[3], sh7[4], grid7, m_rows, m_cols, 1,
+                                cs.R2)
+    mesh7 = cs.Mesh(np.asarray([dev] * m_rows * m_cols, dtype=object)
+                    .reshape(m_rows, m_cols), ("row", "col"))
+    fn = cs.halo_letkf_analysis_2d(
+        mesh7, cs.GaspariCohn((cs.R2, cs.R2), cs.dist2), max_obs=nb7,
+        grid_shape=(n7, n7), halo=(1, 1), inf_factor=cs.INF,
+        cheb_degree=cs.DEGREE, local_method="window", obs_block=blk7)
+    args = [torch.as_tensor(a, device=dev) for a in (
+        w7[0].reshape(40, n7, n7),) + sh7[:5] + (grid7,)]
+
+    def run(plain=False):
+        return None if plain else fn(*args)
+    return (f"window2d halo 2 x 4 tiles of config 7 nb {nb7} degree "
+            f"{cs.DEGREE}", run)
+
+
 def window2d_cases(cs, dev):
-    """K6's cases: config 8 through the strips, config 7 banded, and the
-    dense network; ``[(name, run), ...]``."""
+    """K6's cases: config 8 through the strips, config 7 banded, the dense
+    network and config 7's 2 x 4 halo tiles; ``[(name, run), ...]``."""
     torch = cs.torch
     loc = cs.GaspariCohn((cs.R2, cs.R2), cs.dist2)
     reg = 39 / cs.INF
@@ -175,6 +211,7 @@ def window2d_cases(cs, dev):
          window2d_case(cs, args7, kw7)),
         ("window2d dense, every slot weighs, 2^16 columns nb 52 degree 16",
          window2d_case(cs, argsd, kwd)),
+        halo2d_case(cs, dev),
     ]
 
 
@@ -268,16 +305,20 @@ def main():
              if name.startswith(opts.only)]
 
     result = {"label": opts.label, "root": opts.root, "card": cs.card(),
-              "ms": {}, "device_ms": {}, "host_ms": {}, "rel_err": {},
-              "union_share": {}, "width_shares": {}, "sha256": {}}
+              "ms": {}, "device_ms": {}, "k6_device_ms": {}, "host_ms": {},
+              "rel_err": {}, "union_share": {}, "width_shares": {},
+              "staged_share": {}, "sha256": {}}
     share = getattr(cs.k1, "window1d_union_share", None)
     widths = getattr(cs.k1, "window2d_width_counts", None)
+    staged = getattr(cs.k1, "window2d_staged_share", None)
     for name, run in cases:
         out = run()
         result["sha256"][name] = digest(out)
         if opts.check:
-            _, result["rel_err"][name] = cs.compare(out, run(plain=True),
-                                                    name)
+            plain = run(plain=True)
+            if plain is not None:
+                _, result["rel_err"][name] = cs.compare(out, plain, name)
+            del plain
         del out
         if name.startswith("window1d") and share is not None:
             run()
@@ -288,8 +329,13 @@ def main():
             total = sum(counts.values())
             result["width_shares"][name] = {w: n / total
                                             for w, n in counts.items() if n}
+            if staged is not None:
+                result["staged_share"][name] = staged()
         result["ms"][name] = cs.median_ms(run)
-        result["device_ms"][name] = cs.device_profile(run, calls=20)[1]
+        _, result["device_ms"][name], rows = cs.device_profile(run, calls=20)
+        if name.startswith("window2d"):
+            result["k6_device_ms"][name] = sum(
+                ms for kernel, ms, _ in rows if "window2d" in kernel)
         result["host_ms"][name] = host_ms(run)
     print(json.dumps(result), flush=True)
 

@@ -143,7 +143,9 @@ Phases (one line each; any failure exits non-zero):
 Phase 1 also prints each K1, K2, K3, K4, K5, K6 and K7 kernel's
 registers, shared memory and spills (nvcc -Xptxas -v) and fails on a
 spill of K1's union or register route, of K4's register route, of K2,
-of K5, of K6's register route or of any K7 instance; phases 3, 12 and 13
+of K5, of K6's register route or of any K7 instance, and where K6 at
+config 8's window (NBC 56) holds fewer than 12 warps an SM; phases 3, 12
+and 13
 run K1, K4 and K5 on each of their routes (K1's union, register and
 shared; the others' register and shared) and at every packing of their
 warps, each case with a NaN column among healthy packed ones, phase 17
@@ -325,14 +327,17 @@ def card():
 def resources_note():
     """Registers, static shared memory and spills of every kernel that the
     K1, K2, K3, K4, K5, K6 and K7 sources built, as nvcc -Xptxas -v reports
-    them; for K6's register route and K5's at nb = NB also the warps an SM
-    holds at that register count (4 warps a block); K1's register route
+    them; for K6's register route the warps an SM holds at that register
+    count in its plan's blocks, staged and not (``k6_warps_per_sm``), and
+    for K5's at nb = NB (4 warps a block); K1's register route
     (NBC = 36..64), K1's union route (NBC = 4..32), K4's register route
     (NBC = 4..64), K5's (NB = 1..32) and K7's 32 instances (Kp = 2..64) as
     registers by size, K1's union route and K4 at NBC = NB, K5 at NB and K7
     at Kp = 40 in full; K2 with the warps an SM holds (blocks of 4 warps).
     Fails on any spill of K1's or K4's register route, of K1's union route,
-    of K2, of K5, of K6's register route or of K7."""
+    of K2, of K5, of K6's register route or of K7, and where K6's
+    instance at bench config 8's window (NBC 56) takes more than 168
+    registers (fewer than 12 warps an SM)."""
     notes = []
     for src in ("rk4_l96", "letkf_window1d", "letkf_nbh_cheb", "svd_jacobi",
                 "letkf_nbh_ns", "letkf_window2d", "eigh_jacobi"):
@@ -359,8 +364,9 @@ def resources_note():
             if name.startswith("window2d_reg_kernel"):
                 check(st == 0 and ld == 0,
                       f"K6 register route spills: {note}")
-                blocks = 65536 // (-(-regs // 8) * 8 * 32 * k1.K6_REG_WARPS)
-                note += f" ({blocks * k1.K6_REG_WARPS} warps/SM by registers)"
+                check(not name.endswith("<56>") or regs <= 168,
+                      f"K6 at config 8's window below 12 warps an SM: {note}")
+                note += f" ({k6_warps_per_sm(name, regs)})"
             if name.startswith("nbh_ns_"):
                 check(st == 0 and ld == 0, f"K5 spills: {note}")
             if name.startswith("nbh_ns_reg_kernel"):
@@ -1977,6 +1983,29 @@ def dist2(grid_coord, obs_coords):
                         torch.abs(obs_coords[:, 2] - grid_coord[2])], 0)
 
 
+def k6_warps_per_sm(name, regs):
+    """The warps an SM holds of K6's register-route instance ``name``
+    (``window2d_reg_kernel<NBC>``) at ``regs`` registers a lane, in the
+    blocks its plan launches over bench config 8's 8192 tiles (k 40,
+    degree 16): in slices of 184 rows, staged from NBC 32 on, and in
+    slices of 1000, too wide to stage; each by registers and by the
+    block's shared memory."""
+    nbc = int(name.split("<")[1].rstrip(">"))
+    notes = []
+    for width in (184, 1000):
+        plan = k1.window2d_plan(40, nbc, 1, 16, width, 8192)
+        warps = plan["warps"]
+        blocks = min(65536 // (-(-regs // 8) * 8 * 32 * warps),
+                     k1.SMEM_PER_SM // (plan["smem"]
+                                        + k1.SMEM_RESERVED_PER_BLOCK))
+        note = (f"{'staged' if plan['staged'] else 'unstaged'} "
+                f"{warps}-warp blocks, {blocks} an SM: {blocks * warps} "
+                f"warps/SM")
+        if note not in notes:
+            notes.append(note)
+    return "; ".join(notes)
+
+
 def k6_vs_plain(args, kw, label):
     """K6 through ``window2d_banded`` (one counted launch) against
     ``window2d_plain`` on the same inputs; returns the kernel's output, the
@@ -1990,16 +2019,18 @@ def k6_vs_plain(args, kw, label):
 
 
 def k6_plan(args, kw):
-    """K6's launch plan (route, warps, blocks per tile) for these inputs."""
+    """K6's launch plan (route, warps, blocks per tile, whether its blocks
+    stage their slice) for these inputs."""
     tile = kw.get("tile", 128)
     return k1.window2d_plan(kw["ens_size"], kw["nb"], args[3].shape[0],
                             kw["degree"], kw["width"],
-                            args[2].shape[1] // tile, tile)
+                            args[2].shape[1] // tile, tile, args[2].shape[0])
 
 
 def plan_note(plan):
     return (f"{plan['route']} route, {plan['warps']} warps a block, "
-            f"{plan['splits']} blocks a tile")
+            f"{plan['splits']} blocks a tile"
+            + (", slice staged" if plan.get("staged") else ""))
 
 
 def sampled_oracle(loc, w8, cols, dev):

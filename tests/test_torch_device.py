@@ -9,6 +9,11 @@ kernels, on the CPU:
 - K6's plan (``window2d_plan``): every window from 8 to 72 gets a route
   whose block fits a Hopper block's shared memory, the register route up
   to its bound, and grids of few tiles spread over several blocks a tile;
+  the register route's blocks stage their slice where it fits beside the
+  workspaces at the blocks an SM the kernel is built for and a block has
+  enough columns (bench config 8's strips, config 7, a 2-D halo's 16
+  tiles), and read from the table elsewhere (the dense network's wide
+  slices, tiles of 4 columns, the shared route);
 - K3's plan (``svd_jacobi_plan``) and K7's (``eigh_jacobi_plan``): every
   K up to ``MAX_K``;
 - K5's plan (``nbh_ns_plan``): every nb from 1 to 40 gets the route of
@@ -115,28 +120,99 @@ def test_window2d_plan_fits(nb):
                 assert plan["smem"] <= SMEM_PER_BLOCK
                 assert plan["route"] == ("register" if nb <= k1.K6_REG_MAX_NB
                                          else "shared")
-                cap = (k1.K6_REG_WARPS if plan["route"] == "register"
-                       else k1.K6_SMEM_MAX_WARPS)
+                cap = (k1.K6_SMEM_MAX_WARPS if plan["route"] == "shared"
+                       else k1.K6_STAGED_WARPS if plan["staged"]
+                       else k1.K6_REG_WARPS)
                 assert 1 <= plan["warps"] <= cap
                 band, keys = 8 * width, 8 * (1 << (width - 1).bit_length())
                 per_warp = 4 * k1._k6_floats_per_warp(plan["route"], 40, nb,
                                                       ns, degree)
+                # a staged slice: width rows of 43 floats, stride 43
+                stage = -(-4 * width * 43 // 16) * 16 if plan["staged"] else 0
                 assert plan["smem"] == (-(-band // 16) * 16
-                                        + 4 * len(k1.K6_WIDTHS) + max(
+                                        + 4 * len(k1.K6_WIDTHS) + stage + max(
                                             keys, plan["warps"] * per_warp))
                 assert 128 % plan["splits"] == 0
-                assert 128 // plan["splits"] >= 2 * plan["warps"]
+                assert 128 // plan["splits"] >= (
+                    k1.K6_STAGED_MIN_COLS if plan["staged"]
+                    else 2 * plan["warps"])
 
 
-@pytest.mark.parametrize("n_tiles, splits", [(8192, 1), (128, 16), (16, 16),
-                                             (1000, 4)])
-def test_window2d_plan_spreads_small_grids(n_tiles, splits):
-    """Config 8 (8192 tiles) keeps a block a tile; config 7 (128 tiles)
-    and a 2-D halo tile (16) spread each tile until every warp has two
-    columns; a middling grid only until ~2112 blocks are in flight."""
-    plan = k1.window2d_plan(40, 52, 1, 16, 184, n_tiles)
-    assert plan["route"] == "register" and plan["warps"] == 4
+@pytest.mark.parametrize("n_tiles, width, staged, splits", [
+    (8192, 184, True, 1), (128, 184, True, 4), (16, 184, True, 16),
+    (1000, 184, True, 1), (128, 4000, False, 16), (16, 4000, False, 16),
+    (1000, 4000, False, 4)])
+def test_window2d_plan_spreads_small_grids(n_tiles, width, staged, splits):
+    """Config 8 (8192 tiles) keeps a block a tile. Staged (a slice of 184
+    rows), config 7's 128 tiles spread over blocks of 32 columns and a 2-D
+    halo's 16 over blocks of 8, each within two waves of two blocks an SM;
+    a middling grid not at all. Unstaged (a slice of 4000 rows, too wide to
+    stage), grids of few tiles spread each tile until every warp has two
+    columns, a middling grid only until ~2112 blocks are in flight."""
+    plan = k1.window2d_plan(40, 52, 1, 16, width, n_tiles)
+    assert plan["route"] == "register" and plan["staged"] is staged
+    assert plan["warps"] == (6 if staged else 4)
     assert plan["splits"] == splits
+
+
+def _blocks_per_sm(plan):
+    return k1.SMEM_PER_SM // (plan["smem"] + k1.SMEM_RESERVED_PER_BLOCK)
+
+
+# (k, nb, ns, degree, width, n_tiles, tile, staged, warps, splits)
+_K6_STAGING = {
+    # bench config 8's strip plan: a slice of 184 rows, 8192 tiles
+    "config 8 strips": (40, 52, 1, 16, 184, 8192, 128, True, 6, 1),
+    # chip_kernel_times.py's dense network: slices of 520 rows
+    "dense network": (40, 52, 1, 16, 520, 512, 128, False, 4, 8),
+    # k 100 on a wide band: a slice of 103-float rows beyond the SM's half
+    "k 100, wide band": (100, 52, 1, 16, 400, 8192, 128, False, 4, 1),
+    # config 7's 2 x 4 halo: 16 tiles a shard, 8 columns a block
+    "halo tiles": (40, 36, 1, 12, 160, 16, 128, True, 6, 16),
+    # tiles of 4 columns: a block would copy the slice for too few
+    "tiles of 4 columns": (40, 36, 1, 12, 160, 16, 4, False, 4, 1),
+    # the shared route as before: no staging
+    "shared route": (40, 72, 1, 16, 184, 8192, 128, False, 6, 1),
+    # windows of 57-64: staged blocks of 4 warps
+    "nb 64": (40, 64, 1, 16, 184, 8192, 128, True, 4, 1),
+    # windows of 25-32 stage; smaller ones keep 4-warp blocks, which hold
+    # more warps an SM at their registers
+    "nb 25": (40, 25, 1, 16, 184, 8192, 128, True, 6, 1),
+    "nb 24": (40, 24, 1, 16, 184, 8192, 128, False, 4, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_K6_STAGING))
+def test_window2d_plan_stages_where_it_fits(case):
+    """The register route stages a tile's slice for windows of at least
+    K6_STAGED_MIN_NB where the block, slice beside the workspaces, fits
+    K6_STAGED_BLOCKS times in an SM and holds at least K6_STAGED_MIN_COLS
+    columns; elsewhere the plan is the unstaged one."""
+    k, nb, ns, degree, width, n_tiles, tile, staged, warps, splits = \
+        _K6_STAGING[case]
+    plan = k1.window2d_plan(k, nb, ns, degree, width, n_tiles, tile)
+    assert plan["staged"] is staged
+    assert (plan["warps"], plan["splits"]) == (warps, splits)
+    route = "shared" if nb > k1.K6_REG_MAX_NB else "register"
+    assert plan["route"] == route
+    band = -(-8 * width // 16) * 16 + 4 * len(k1.K6_WIDTHS)
+    keys = 8 * (1 << (width - 1).bit_length())
+    per_warp = 4 * k1._k6_floats_per_warp(route, k, nb, ns, degree)
+    # rows of k + 3 floats at an odd stride
+    stage = -(-4 * width * ((k + 3) | 1) // 16) * 16
+    if staged:
+        assert plan["smem"] == band + stage + max(warps * per_warp, keys)
+        assert _blocks_per_sm(plan) >= k1.K6_STAGED_BLOCKS
+        assert tile // splits >= k1.K6_STAGED_MIN_COLS
+        assert splits == 1 or (n_tiles * splits
+                               <= 2 * k1.K6_STAGED_BLOCKS * 132)
+    else:
+        assert plan["smem"] == band + max(warps * per_warp, keys)
+        fits = (k1.SMEM_PER_SM // (band + stage + max(
+            k1.K6_STAGED_WARPS * per_warp, keys)
+            + k1.SMEM_RESERVED_PER_BLOCK) >= k1.K6_STAGED_BLOCKS)
+        assert (route == "shared" or not fits or nb < k1.K6_STAGED_MIN_NB
+                or tile < k1.K6_STAGED_MIN_COLS)
 
 
 def test_window2d_plan_raises_when_nothing_fits():

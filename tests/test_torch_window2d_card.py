@@ -6,12 +6,17 @@ NaN. Its register route solves each column on the window's observations of
 nonzero weight alone, at their count rounded up to 8; every case also
 holds the kernel's count of columns at each width
 (``window2d_width_counts``) equal to the count made on the host from the
-same inputs (the plain version's windows). The cases: a network whose
-columns take every width 8-56 (columns with no observation of weight, and
-with 49-52), bench config 8's strip plan cut to 64 x 64, two state slices
-with a third coordinate, strict-overflow columns, band-overflow poison,
-and a NaN observation, which poisons the columns where it weighs and no
-other.
+same inputs (the plain version's windows), and the share of its blocks
+that staged their slice of the table in shared memory
+(``window2d_staged_share``) at 1.0 where the plan stages and 0.0 where it
+does not. The cases, staged: a network whose columns take every width
+8-56 (columns with no observation of weight, and with 49-52), bench config
+8's strip plan cut to 64 x 64, a third coordinate (rows of 10 floats,
+staged at a stride of 11), strict-overflow columns, band-overflow poison;
+unstaged, in slices too wide to stage: the first network, and two state
+slices with a third coordinate. The staged output is bit for bit the unstaged one on the same
+inputs, and a NaN observation poisons the columns where it weighs and no
+other, staged and not.
 
 These tests need a CUDA card and skip without one. The card's machine has
 no JAX, so run them there without the suite's conftest:
@@ -87,13 +92,17 @@ def _graded_case(dev, **opts):
     return _banded(dev, grid, obs, 8, 1, 56, 2.0, **opts)
 
 
-def _third_coordinate(dev):
+# an observation block whose slices (2408 rows) are too wide to stage
+WIDE_BLOCK = 2400
+
+
+def _third_coordinate(dev, k=12, ns=2):
     grid, obs = _graded(nx=128, ny=24, seed=3)
     grid = np.concatenate([grid, np.remainder(grid[:, :1] + 2 * grid[:, 1:],
                                               3.0)], 1)
     obs = np.concatenate([obs, np.remainder(obs[:, :1] + obs[:, 1:], 3.0)],
                          1)
-    return _banded(dev, grid, obs, 12, 2, 48, 2.0, extra=(1.5,),
+    return _banded(dev, grid, obs, k, ns, 48, 2.0, extra=(1.5,),
                    strict=False)
 
 
@@ -148,13 +157,21 @@ def _check_close(out, plain, what):
         assert err <= 1e-5 * scale, f"{what}: {err} > 1e-5 * {scale}"
 
 
+def _plan(args, kw):
+    tile = kw.get("tile", 128)
+    return k6.window2d_plan(kw["ens_size"], kw["nb"], args[3].shape[0],
+                            kw["degree"], kw["width"],
+                            args[2].shape[1] // tile, tile, args[2].shape[0])
+
+
 def _run(args, kw, what):
-    """K6 against the plain version, and its width counts against the
-    host's; returns the kernel's output and each column's count of
-    observations of nonzero weight."""
+    """K6 against the plain version, its width counts against the host's
+    and its staged share against its plan; returns the kernel's output and
+    each column's count of observations of nonzero weight."""
     before = k6.LAUNCHES["window2d"]
     out = k6.window2d_banded(*args, **kw)
     assert k6.LAUNCHES["window2d"] == before + 1
+    assert k6.window2d_staged_share() == float(_plan(args, kw)["staged"])
     counts = k6.window2d_width_counts()
     _check_close(out, k6.window2d_plain(*args, **kw), what)
     expected, m = _counts_by_width(args, kw)
@@ -166,23 +183,30 @@ CASES = {
     "every width": lambda dev: _graded_case(dev, strict=False),
     "strips 64x64": _strips_64,
     "ns 2, third coordinate": _third_coordinate,
+    # rows of 6 + 1 + 3 floats, staged at a stride of 11
+    "k 6, third coordinate": lambda dev: _third_coordinate(dev, k=6, ns=1),
     "strict overflow": lambda dev: _graded_case(dev),
     "band overflow poison": lambda dev: _graded_case(dev, block=200,
                                                      strict=False),
+    "every width, wide slice": lambda dev: _graded_case(
+        dev, block=WIDE_BLOCK, strict=False),
 }
+
+
+# the cases whose slices are too wide to stage beside their workspaces
+UNSTAGED = {"ns 2, third coordinate", "every width, wide slice"}
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_matches_plain(cuda_device, name):
     args, kw = CASES[name](cuda_device)
     tile = kw.get("tile", 128)
-    assert k6.window2d_plan(kw["ens_size"], kw["nb"], args[3].shape[0],
-                            kw["degree"], kw["width"],
-                            args[2].shape[1] // tile, tile)["route"] == \
-        "register"
+    plan = _plan(args, kw)
+    assert plan["route"] == "register"
+    assert plan["staged"] != (name in UNSTAGED)
     out, m = _run(args, kw, name)
     nan_cols = torch.isnan(out).any(1).any(0)
-    if name == "every width":
+    if name.startswith("every width"):
         widths = set(torch.clamp((m + 7) // 8 * 8, min=8).tolist())
         assert widths == set(range(8, 57, 8)), widths
         assert bool((m == 0).any()) and bool(((m >= 49) & (m <= 52)).any())
@@ -195,11 +219,35 @@ def test_kernel_matches_plain(cuda_device, name):
         assert bool((tiles.all(1) | ~tiles.any(1)).all())
 
 
-def test_nan_observation_poisons_where_it_weighs(cuda_device):
+def test_staged_equals_unstaged(cuda_device, monkeypatch):
+    """The staged plan's output is bit for bit the unstaged plan's on the
+    same inputs: the staged floats are the table's, read in the same
+    expressions."""
+    args, kw = _graded_case(cuda_device, strict=False)
+    assert _plan(args, kw)["staged"]
+    out = k6.window2d_banded(*args, **kw)
+    assert k6.window2d_staged_share() == 1.0
+    # the same shapes in tiles of 4 columns: too few a block to stage; the
+    # plan's warps, one block a tile and its bytes hold at any tile
+    unstaged = k6.window2d_plan(kw["ens_size"], kw["nb"], args[3].shape[0],
+                                kw["degree"], kw["width"], 1, 4)
+    assert not unstaged["staged"]
+    monkeypatch.setattr(k6, "_launch_plan", lambda name, *shape: unstaged)
+    out_unstaged = k6.window2d_banded(*args, **kw)
+    assert k6.window2d_staged_share() == 0.0
+    assert torch.equal(out.view(torch.int32), out_unstaged.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [WIDE_BLOCK, None],
+                         ids=["table", "staged"])
+def test_nan_observation_poisons_where_it_weighs(cuda_device, block):
     """A NaN in one observation's perturbations poisons the columns whose
     windows hold it at nonzero weight; the columns whose windows hold it
-    at zero weight stay finite, on the card as in the plain version."""
-    args, kw = _graded_case(cuda_device, strict=False)
+    at zero weight stay finite, on the card as in the plain version,
+    whether the blocks read their windows from the table or from their
+    staged slice."""
+    args, kw = _graded_case(cuda_device, block=block, strict=False)
+    assert _plan(args, kw)["staged"] == (block is None)
     table = args[0].clone()
     table[_graded()[1].shape[0] // 3, :kw["ens_size"]] = float("nan")
     args[0] = table

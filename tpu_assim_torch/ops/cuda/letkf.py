@@ -28,7 +28,9 @@ helpers they share with the JAX package:
   (``csrc/cheb_reg.cuh``) or in shared memory (``csrc/cheb_core.cuh``);
   the register route solves each column at the width of its observations
   of nonzero weight, and counts the columns at each width
-  (:func:`window2d_width_counts`).
+  (:func:`window2d_width_counts`); where the plan finds room, its blocks
+  stage their tile's slice of the observation table in shared memory once
+  for all their columns (:func:`window2d_staged_share`).
 
 Each kernel's launch plan is Python arithmetic that mirrors its source's
 shared-memory layout, so that the CPU tests check every shape; it is
@@ -97,6 +99,7 @@ __all__ = [
     "window2d_inputs",
     "window2d_plain",
     "window2d_plan",
+    "window2d_staged_share",
     "window2d_width_counts",
     "window_analysis_plain",
 ]
@@ -110,10 +113,12 @@ LAUNCHES = {"window1d": 0, "nbh_cheb": 0, "nbh_ns": 0, "window2d": 0}
 # with a synchronise.
 WINDOW1D_UNION_BLOCKS = {"flag": None, "blocks": 0}
 
-# K6's last launch: its int32[8] on the card, the columns its register
-# route solved at each width of K6_WIDTHS. Nothing reads the tensor during
-# a call; window2d_width_counts does, with a synchronise.
-WINDOW2D_WIDTHS = {"counts": None}
+# K6's last launch: its int32[9] on the card, the columns its register
+# route solved at each width of K6_WIDTHS, then the blocks that staged
+# their slice; and its block count. Nothing reads the tensor during a
+# call; window2d_width_counts and window2d_staged_share do, with a
+# synchronise.
+WINDOW2D_WIDTHS = {"counts": None, "blocks": 0}
 
 # Why a direct launch refuses an input that requires a gradient.
 _NO_GRAD_LAUNCH = {
@@ -710,11 +715,11 @@ def _launch_plan(name: str, *shape) -> dict:
                   lib.nbh_ns_cols_per_warp(nb))
     else:
         plan = window2d_plan(*shape)
-        k, nb, ns, degree, width = shape[:5]
+        k, nb, ns, degree, width, _, _, n_dims = shape
         ours = (plan["smem"],)
         theirs = (_window2d_lib().window2d_smem_bytes(
             K6_ROUTES.index(plan["route"]), k, nb, ns, degree, width,
-            plan["warps"]),)
+            plan["warps"], n_dims, int(plan["staged"])),)
     if ours != theirs:
         raise RuntimeError(
             f"{name}: the plan {plan} differs from the kernel's layout "
@@ -1316,9 +1321,9 @@ def _window2d_lib():
     lib = load_library("letkf_window2d")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window2d_launch.argtypes = (
-        [ptr] * 10 + [i32] * 11 + [f32] * 2 + [i32] * 3 + [ptr])
+        [ptr] * 10 + [i32] * 11 + [f32] * 2 + [i32] * 4 + [ptr])
     lib.window2d_launch.restype = i32
-    lib.window2d_smem_bytes.argtypes = [i32] * 7
+    lib.window2d_smem_bytes.argtypes = [i32] * 9
     lib.window2d_smem_bytes.restype = ctypes.c_size_t
     lib.window2d_error_string.argtypes = [i32]
     lib.window2d_error_string.restype = ctypes.c_char_p
@@ -1327,18 +1332,35 @@ def _window2d_lib():
 
 # K6's routes (csrc/letkf_window2d.cu): the register route holds the Gram
 # matrix in registers for windows of at most K6_REG_MAX_NB observations in
-# blocks of K6_REG_WARPS warps; the shared route takes larger windows, up
-# to K6_SMEM_MAX_WARPS warps a block.
+# blocks of K6_REG_WARPS warps, or of K6_STAGED_WARPS (K6_REG_WARPS at
+# K6_REG_MAX_NB) where its blocks stage their slice, built for
+# K6_STAGED_BLOCKS blocks an SM: the same warps an SM by registers; the
+# shared route takes larger windows, up to K6_SMEM_MAX_WARPS warps a block.
 K6_ROUTES = ("register", "shared")
 K6_REG_MAX_NB = 64
 K6_REG_WARPS = 4
+K6_STAGED_WARPS = 6
+K6_STAGED_BLOCKS = 2
 K6_SMEM_MAX_WARPS = 8
 # The widths the register route solves a column at: its observations of
 # nonzero weight rounded up to 8.
 K6_WIDTHS = tuple(range(8, K6_REG_MAX_NB + 1, 8))
-# Blocks that fill the card: 132 SMs, each holding 2-3 of them, several
-# waves over, so that the last wave's imbalance is small.
-_K6_FILL_BLOCKS = 16 * 132
+# A Hopper card's SMs; unstaged blocks that fill it: each SM holding 2-3
+# of them, several waves over, so that the last wave's imbalance is small.
+_K6_SMS = 132
+_K6_FILL_BLOCKS = 16 * _K6_SMS
+# Staged blocks copy their tile's whole slice each, so a tile spreads over
+# no more of them than keep the launch within two waves of
+# K6_STAGED_BLOCKS blocks an SM, each of K6_STAGED_MIN_COLS columns or
+# more (on the card, config 7's 128 tiles ran fastest as 512 blocks of 32
+# columns, the 2-D halo's 16 as 256 blocks of 8).
+_K6_STAGED_FILL_BLOCKS = 2 * K6_STAGED_BLOCKS * _K6_SMS
+K6_STAGED_MIN_COLS = 8
+# The smallest window whose blocks stage. Below it (NBC 8-24) the kernel
+# takes 100-121 registers, so unstaged blocks of 4 warps hold 16 warps an
+# SM, staged blocks of 6 only 12: on config 8's network staging lost 3-10%
+# at windows of 16 and 24 and gained 2-8% at 32-52 (an H100).
+K6_STAGED_MIN_NB = 25
 
 
 def _band_bytes(width: int) -> tuple:
@@ -1349,6 +1371,13 @@ def _band_bytes(width: int) -> tuple:
     workspaces overwrite once the band is sorted."""
     pow2 = 1 << max(width - 1, 0).bit_length()
     return ((8 * width + 15) & ~15) + 4 * len(K6_WIDTHS), 8 * pow2
+
+
+def _k6_stage_bytes(width: int, rows: int) -> int:
+    """Shared memory of a staged slice (letkf_window2d.cu:stage_bytes):
+    ``width`` table rows of ``rows`` floats at the odd row stride
+    ``rows | 1``, 16-byte aligned."""
+    return (4 * width * (rows | 1) + 15) & ~15
 
 
 def _k6_floats_per_warp(route: str, k: int, nb: int, ns: int,
@@ -1365,36 +1394,77 @@ def _k6_floats_per_warp(route: str, k: int, nb: int, ns: int,
     return _round4(_cheb_core_floats(k, nb, ns, degree) + 2 * nb)
 
 
+def _k6_splits(n_tiles: int, tile: int, min_cols: int) -> int:
+    """Blocks a tile, unstaged: doubled while fewer than
+    ``_K6_FILL_BLOCKS`` blocks are in flight and each block keeps at least
+    ``min_cols`` columns."""
+    splits = 1
+    while (n_tiles * splits < _K6_FILL_BLOCKS and tile % (2 * splits) == 0
+           and tile // (2 * splits) >= min_cols):
+        splits *= 2
+    return splits
+
+
+def _k6_staged_splits(n_tiles: int, tile: int) -> int:
+    """Blocks a tile, staged: doubled while twice as many blocks stay
+    within ``_K6_STAGED_FILL_BLOCKS`` and each keeps at least
+    ``K6_STAGED_MIN_COLS`` columns."""
+    splits = 1
+    while (2 * n_tiles * splits <= _K6_STAGED_FILL_BLOCKS
+           and tile % (2 * splits) == 0
+           and tile // (2 * splits) >= K6_STAGED_MIN_COLS):
+        splits *= 2
+    return splits
+
+
 def window2d_plan(k: int, nb: int, ns: int, degree: int, width: int,
-                  n_tiles: int, tile: int = 128) -> dict:
-    """K6's launch: the route, the warps a block, the blocks a tile
-    (``splits``) and the block's shared memory in bytes.
+                  n_tiles: int, tile: int = 128, n_dims: int = 2) -> dict:
+    """K6's launch for ``n_tiles`` tiles of ``tile`` columns, each reading
+    a slice of ``width`` table rows of ``k + 1 + n_dims`` floats: the
+    route, the warps a block, the blocks a tile (``splits``), the block's
+    shared memory in bytes and ``staged``, whether its blocks stage their
+    slice in shared memory.
 
     Windows of up to ``K6_REG_MAX_NB`` take the register route, larger
-    ones the shared route. The warps are the route's most that fit a
-    Hopper block's shared memory beside the band. A grid of few tiles
-    spreads each tile over up to ``tile / (2 warps)`` blocks (each sorts
-    the band itself; every warp keeps at least two columns) until about
-    ``16 * 132`` blocks are in flight. Raises ``ValueError`` when not even
-    one warp fits."""
+    ones the shared route. On the register route, for windows of at
+    least ``K6_STAGED_MIN_NB``, the blocks stage their slice where a
+    block of ``K6_STAGED_WARPS`` warps (``K6_REG_WARPS`` at windows of
+    57-64) with the slice beside its workspaces fits
+    ``K6_STAGED_BLOCKS`` times in an SM's shared memory and holds at least
+    ``K6_STAGED_MIN_COLS`` columns; a grid of few tiles spreads each tile
+    over blocks of no fewer columns while the launch stays within two
+    waves of ``K6_STAGED_BLOCKS`` blocks an SM.
+    Elsewhere each column reads its window from the table: the warps are
+    the route's most that fit a Hopper block's shared memory beside the
+    band, and a grid of few tiles spreads each tile over up to
+    ``tile / (2 warps)`` blocks (each sorts the band itself; every warp
+    keeps at least two columns) until about ``16 * 132`` blocks are in
+    flight. Raises ``ValueError`` when not even one warp fits."""
     from tpu_assim_torch._build import SMEM_PER_BLOCK
 
     route = "register" if nb <= K6_REG_MAX_NB else "shared"
-    cap = K6_REG_WARPS if route == "register" else K6_SMEM_MAX_WARPS
     band, keys = _band_bytes(width)
     per_warp = 4 * _k6_floats_per_warp(route, k, nb, ns, degree)
+    if route == "register" and nb >= K6_STAGED_MIN_NB:
+        warps = K6_STAGED_WARPS if nb <= K6_REG_MAX_NB - 8 else K6_REG_WARPS
+        smem = (band + _k6_stage_bytes(width, k + 1 + n_dims)
+                + max(warps * per_warp, keys))
+        splits = _k6_staged_splits(n_tiles, tile)
+        if (SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK)
+                >= K6_STAGED_BLOCKS
+                and tile // splits >= K6_STAGED_MIN_COLS):
+            return {"route": route, "warps": warps, "splits": splits,
+                    "smem": smem, "staged": True}
+    cap = K6_REG_WARPS if route == "register" else K6_SMEM_MAX_WARPS
     warps = min(cap, tile, (SMEM_PER_BLOCK - band) // per_warp)
     if warps < 1 or band + keys > SMEM_PER_BLOCK:
         raise ValueError(
             f"window2d: these shapes need {band + max(per_warp, keys)} bytes "
             f"of shared memory per block; a Hopper block has "
             f"{SMEM_PER_BLOCK}")
-    splits = 1
-    while (n_tiles * splits < _K6_FILL_BLOCKS and tile % (2 * splits) == 0
-           and tile // (2 * splits) >= 2 * warps):
-        splits *= 2
-    return {"route": route, "warps": warps, "splits": splits,
-            "smem": band + max(warps * per_warp, keys)}
+    return {"route": route, "warps": warps,
+            "splits": _k6_splits(n_tiles, tile, 2 * warps),
+            "smem": band + max(warps * per_warp, keys), "staged": False}
 
 
 def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
@@ -1403,12 +1473,13 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
     n_rows = table.shape[0]
     n_dims, g = grid.shape
     ns, k, _ = sp.shape
-    plan = _launch_plan("window2d", k, nb, ns, degree, width, g // tile, tile)
+    plan = _launch_plan("window2d", k, nb, ns, degree, width, g // tile, tile,
+                        n_dims)
     _check_launchable("window2d", (table, bands, grid, sp, mean, scal),
                       plan["smem"])
     nodes, dct = _cheb_tables(degree, table.device)
     out = torch.empty_like(sp)
-    widths = torch.empty(len(K6_WIDTHS), dtype=torch.int32,
+    counts = torch.empty(len(K6_WIDTHS) + 1, dtype=torch.int32,
                          device=table.device)
     with span("kernel.window2d"), torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -1416,16 +1487,17 @@ def _launch_window2d(table, bands, grid, sp, mean, scal, width, nb, degree,
             table.data_ptr(), bands.data_ptr(), grid.data_ptr(),
             sp.data_ptr(), mean.data_ptr(), scal.data_ptr(),
             nodes.data_ptr(), dct.data_ptr(), out.data_ptr(),
-            widths.data_ptr(), k, n_dims, n_rows, g, ns, nb, degree, width,
+            counts.data_ptr(), k, n_dims, n_rows, g, ns, nb, degree, width,
             tile, _TAPERS.index(taper),
             int(bool(strict)), taper_support_z(taper, epsilon),
             float(epsilon), K6_ROUTES.index(plan["route"]), plan["warps"],
-            plan["splits"], stream)
+            plan["splits"], int(plan["staged"]), stream)
     if err != 0:
         raise RuntimeError("window2d kernel launch failed: "
                            + lib.window2d_error_string(err).decode())
     LAUNCHES["window2d"] += 1
-    WINDOW2D_WIDTHS["counts"] = widths
+    WINDOW2D_WIDTHS.update(counts=counts,
+                           blocks=(g // tile) * plan["splits"])
     return out
 
 
@@ -1436,7 +1508,18 @@ def window2d_width_counts():
     counts = WINDOW2D_WIDTHS["counts"]
     if counts is None:
         return None
-    return dict(zip(K6_WIDTHS, counts.tolist()))
+    return dict(zip(K6_WIDTHS, counts[:len(K6_WIDTHS)].tolist()))
+
+
+def window2d_staged_share():
+    """The share of K6's last launch's blocks that read their windows
+    from their slice staged in shared memory (0.0 where none did), read
+    from the card with a synchronise; None before any launch."""
+    counts = WINDOW2D_WIDTHS["counts"]
+    if counts is None:
+        return None
+    blocks = WINDOW2D_WIDTHS["blocks"]
+    return int(counts[len(K6_WIDTHS)].item()) / blocks if blocks else 0.0
 
 
 def _window2d_forward(table, bands, grid, sp, mean, scal, width, ens_size,
